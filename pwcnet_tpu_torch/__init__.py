@@ -1,0 +1,14 @@
+"""pwcnet_tpu_torch: the PyTorch and CUDA port of ``pwcnet_tpu``.
+
+The PWC-Net inference forward on an NVIDIA H100, with hand-written CUDA
+kernels for the correlation and the fused pyramid stem
+(``pwcnet_tpu_torch/csrc``). Public layouts are the JAX package's (NHWC
+images, features and flows); entry points run on the GPU unless the caller
+passes ``device="cpu"``. The package imports nothing of JAX or of
+``pwcnet_tpu``.
+"""
+
+__version__ = "0.1.0"
+
+from pwcnet_tpu_torch.models.pwcnet import PWCNet  # noqa: F401
+from pwcnet_tpu_torch.train.evaluate import predict_flow  # noqa: F401

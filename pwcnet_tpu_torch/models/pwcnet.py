@@ -1,0 +1,256 @@
+"""PWC-Net assembly (counterpart of ``pwcnet_tpu/models/pwcnet.py``).
+
+Public layout is the JAX package's: images (N, H, W, 3) in [0, 1], flows
+(N, H_l, W_l, 2) with channel 0 = x, in *scaled units* (full-resolution
+pixels / ``flow_scale``), coarsest level first. Inside, activations are NCHW
+tensors in ``torch.channels_last`` memory, so a ``permute(0, 2, 3, 1)`` is
+already the contiguous NHWC that the correlation and stem kernels take.
+
+The flow chain stays f32 in a bf16 model: the estimator's and the context
+net's flow convs are cast to f32, and the upsampled flow is cast to the
+working dtype only for the concat.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from pwcnet_tpu_torch.models.init import init_params
+from pwcnet_tpu_torch.models.layers import (ConvBlock, ConvStack, Conv3x3,
+                                            StemConvs, leaky_relu)
+from pwcnet_tpu_torch.ops.cost_volume import cost_volume
+from pwcnet_tpu_torch.ops.resize import resize_bilinear
+from pwcnet_tpu_torch.ops.warp import warp_bilinear
+
+# Level l (1-indexed, 1/2^l resolution) -> channels.
+DEFAULT_PYRAMID_CHANNELS: Tuple[int, ...] = (16, 32, 64, 96, 128, 196, 224)
+ESTIMATOR_CHANNELS: Tuple[int, ...] = (128, 128, 96, 64, 32)
+# Context network (channels, dilation); a final 2-channel conv follows.
+CONTEXT_SPEC: Tuple[Tuple[int, int], ...] = (
+    (128, 1), (128, 2), (128, 4), (96, 8), (64, 16), (32, 1))
+
+
+def _resolve_device(device) -> torch.device:
+    """``None`` means the GPU; asking for a GPU that is absent raises, so
+    nothing carries on quietly on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+class FeaturePyramidExtractor(nn.Module):
+    """Stride-2 conv pairs per level; levels 1-2 go through ``StemConvs``
+    when the decoder needs nothing finer than level 2 (``min_level >= 2``).
+
+    ``forward`` takes NHWC images and returns NCHW features coarsest first,
+    omitting levels finer than ``min_level``.
+    """
+
+    def __init__(self, channels=DEFAULT_PYRAMID_CHANNELS, min_level: int = 1,
+                 stem_backend: str = "auto", use_norm: bool = False):
+        super().__init__()
+        self.min_level = min_level
+        self.stem = None
+        start, cin = 0, 3
+        if min_level >= 2 and not use_norm and len(channels) >= 2:
+            self.stem = StemConvs(channels[0], channels[1], stem_backend)
+            start, cin = 2, channels[1]
+        blocks = []
+        for ch in channels[start:]:
+            blocks += [ConvBlock(cin, ch, stride=2, use_norm=use_norm),
+                       ConvBlock(ch, ch, use_norm=use_norm)]
+            cin = ch
+        self.blocks = nn.ModuleList(blocks)
+        self.first_level = start + 1
+
+    def forward(self, im: torch.Tensor) -> List[torch.Tensor]:
+        feats = []
+        if self.stem is not None:
+            x = _nchw(self.stem(im))
+            if self.min_level <= 2:
+                feats.append(x)
+        else:
+            x = _nchw(im).contiguous(memory_format=torch.channels_last)
+        level = self.first_level
+        for i in range(0, len(self.blocks), 2):
+            x = self.blocks[i + 1](self.blocks[i](x))
+            if level >= self.min_level:
+                feats.append(x)
+            level += 1
+        return feats[::-1]
+
+
+class OpticalFlowEstimator(nn.Module):
+    """Conv stack 128-128-96-64-32, then a 2-channel flow conv in f32."""
+
+    def __init__(self, cin: int, use_norm: bool = False):
+        super().__init__()
+        self.stack = ConvStack(cin, ESTIMATOR_CHANNELS, use_norm=use_norm)
+        self.flow = Conv3x3(ESTIMATOR_CHANNELS[-1], 2)
+
+    def forward(self, x: torch.Tensor):
+        feat = self.stack(x)
+        return feat, self.flow(feat).float()
+
+
+class ContextNetwork(nn.Module):
+    """Dilated-conv refinement at the output level; returns an f32 delta."""
+
+    def __init__(self, cin: int = ESTIMATOR_CHANNELS[-1] + 2):
+        super().__init__()
+        blocks = []
+        for ch, dil in CONTEXT_SPEC:
+            blocks.append(ConvBlock(cin, ch, dilation=dil))
+            cin = ch
+        self.blocks = nn.ModuleList(blocks)
+        self.flow = Conv3x3(cin, 2)
+
+    def forward(self, feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([feat, flow.to(feat.dtype)], 1)
+        for block in self.blocks:
+            x = block(x)
+        return self.flow(x).float()
+
+
+class PWCNet(nn.Module):
+    """The coarse-to-fine PWC-Net forward, for inference.
+
+    Options follow the JAX ``PWCNet``. The correlation is the CUDA kernel
+    on the GPU and its plain version on the CPU (``corr_backend="pallas"``,
+    the only value ported). ``device=None`` means the GPU, and raises when
+    there is none. Weights are drawn from ``generator`` (seed 0 when None)
+    with the flax defaults' law.
+    """
+
+    def __init__(self, num_levels: int = 6, output_level: int = 4,
+                 search_range: int = 4, residual: bool = True,
+                 use_norm: bool = False, input_norm: bool = False,
+                 input_center: bool = False, corr_backend: str = "pallas",
+                 stem_backend: str = "auto", flow_scale: float = 20.0,
+                 resize_mode: str = "half_pixel", spatial_axis=None,
+                 dtype: torch.dtype = torch.float32,
+                 device: Optional[Union[str, torch.device]] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.device = _resolve_device(device)
+        if not 1 <= num_levels <= len(DEFAULT_PYRAMID_CHANNELS):
+            raise ValueError(f"num_levels must be in 1..7, got {num_levels}")
+        if not 0 <= output_level < num_levels:
+            raise ValueError(f"output_level must be in 0..{num_levels - 1}, "
+                             f"got {output_level}")
+        if corr_backend == "fused" or spatial_axis is not None:
+            raise NotImplementedError(
+                "corr_backend='fused' and spatial_axis are not ported yet")
+        if corr_backend != "pallas":
+            raise ValueError(f"unknown corr_backend {corr_backend!r}")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
+        self.num_levels, self.output_level = num_levels, output_level
+        self.search_range, self.residual = search_range, residual
+        self.input_norm, self.input_center = input_norm, input_center
+        self.flow_scale, self.resize_mode = flow_scale, resize_mode
+        self.dtype = dtype
+
+        chans = DEFAULT_PYRAMID_CHANNELS[:num_levels]
+        self.pyramid = FeaturePyramidExtractor(
+            chans, min_level=num_levels - output_level,
+            stem_backend=stem_backend, use_norm=use_norm)
+        ncorr = (2 * search_range + 1) ** 2
+        self.estimators = nn.ModuleDict({
+            f"l{lv}": OpticalFlowEstimator(ncorr + chans[lv - 1] + 2,
+                                           use_norm=use_norm)
+            for lv in range(num_levels, num_levels - output_level - 1, -1)})
+        self.context = ContextNetwork()
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        init_params(self, generator)
+        self.to(self.device)
+
+    @property
+    def pad_divisor(self) -> int:
+        """Inputs' H and W must be divisible by this."""
+        return 2 ** self.num_levels
+
+    def _prepare(self, im: torch.Tensor) -> torch.Tensor:
+        im = im.to(self.device, torch.float32)
+        if self.input_center:
+            im = im * 2.0 - 1.0
+        if self.input_norm:
+            m = im.mean((1, 2, 3), keepdim=True)
+            s = im.std((1, 2, 3), keepdim=True, correction=0) + 1e-6
+            im = (im - m) / s
+        return im.to(self.dtype)
+
+    def forward(self, im1: torch.Tensor, im2: torch.Tensor,
+                intermediates: Optional[Dict[str, list]] = None
+                ) -> List[torch.Tensor]:
+        """(N, H, W, 3) images in [0, 1], H and W divisible by
+        ``pad_divisor`` -> per-level f32 flows, coarsest first.
+
+        When ``intermediates`` is a dict, it receives the pyramid of both
+        frames (``"pyramid"``, NHWC, coarsest first) and each level's
+        correlation before its LeakyReLU (``"corr"``, NHWC).
+        """
+        div = self.pad_divisor
+        h, w = im1.shape[1], im1.shape[2]
+        if h % div or w % div:
+            raise ValueError(
+                f"input H, W must be divisible by 2**num_levels={div}; got "
+                f"{(h, w)} - pad the images (see pwcnet_tpu_torch.train."
+                f"evaluate.pad_to_divisible for the inference path)")
+        n = im1.shape[0]
+        both = torch.cat([self._prepare(im1), self._prepare(im2)], 0)
+        pyr = self.pyramid(both)
+        if intermediates is not None:
+            intermediates["pyramid"] = [_nhwc(p) for p in pyr]
+            intermediates["corr"] = []
+
+        flows: List[torch.Tensor] = []
+        flow = None
+        for i in range(self.output_level + 1):
+            level = self.num_levels - i
+            f1, f2 = pyr[i][:n], pyr[i][n:]
+            f1h, f2h = _nhwc(f1), _nhwc(f2)
+            if flow is None:
+                up_flow = f1h.new_zeros(f1h.shape[:3] + (2,),
+                                        dtype=torch.float32)
+                warped = f2h
+            else:
+                up_flow = resize_bilinear(flow, tuple(f1h.shape[1:3]),
+                                          self.resize_mode)
+                warped = warp_bilinear(
+                    f2h, up_flow * (self.flow_scale / 2.0 ** level))
+            corr = cost_volume(f1h, warped,
+                               max_displacement=self.search_range)
+            if intermediates is not None:
+                intermediates["corr"].append(corr)
+            x = torch.cat([_nchw(leaky_relu(corr)), f1,
+                           _nchw(up_flow.to(self.dtype))], 1)
+            feat, delta = self.estimators[f"l{level}"](x)
+            flow = up_flow + _nhwc(delta) if self.residual else _nhwc(delta)
+            if i == self.output_level:
+                flow = flow + _nhwc(self.context(feat, _nchw(flow)))
+            flows.append(flow)
+        return flows
+
+    def full_res_flow(self, flows: List[torch.Tensor],
+                      hw: Tuple[int, int]) -> torch.Tensor:
+        """Finest prediction -> full-resolution pixel flow (N, H, W, 2)."""
+        return resize_bilinear(flows[-1], hw, self.resize_mode) \
+            * self.flow_scale
