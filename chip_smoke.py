@@ -4,13 +4,17 @@
     python3 chip_smoke.py [--out DIR]
 
 Builds the CUDA kernels from ``pwcnet_tpu_torch/csrc`` into ``build/``,
-holds each against its plain PyTorch version on the card, drives the
-PWC-Net inference forward (bf16, 448x1024, random seeded weights) through
-the kernels, checks the flows, and times the kernels and the forward with
-CUDA events. Each phase prints one JSON line; any failure raises and the
-script exits non-zero. Without a CUDA device it exits 1 at once. The last
-line is ``{"ok": true, "device": {...}}``; every phase's result and the
-predicted flow go to ``DIR`` (default ``build/chip_smoke``).
+holds each against its plain PyTorch version on the card (forward kernels
+K1, K4 on their outputs; backward kernels K2, K3, K5 on the gradients),
+drives the PWC-Net inference forward (bf16, 448x1024, random seeded
+weights) and the trainer (``train(synthetic-proof)``, bf16, 8 x 384x448)
+through the kernels, checks flows, losses, launch counts, a checkpoint
+round trip, an overfit run and an f32 step against the CPU, and times the
+kernels, the forward and the train step with CUDA events. Each phase prints
+one JSON line; any failure raises and the script exits non-zero. Without a
+CUDA device it exits 1 at once. The last line is ``{"ok": true, "device":
+{...}}``; every phase's result, the predicted flow and the trainer's logs
+go to ``DIR`` (default ``build/chip_smoke``).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -37,13 +41,43 @@ K1_MAIN = [(1, 7, 16, 196), (1, 14, 32, 128), (1, 28, 64, 96),
 K1_RAGGED = [(2, 7, 13, 5), (1, 9, 33, 196), (3, 20, 70, 32)]
 K4_MAIN = (2, 448, 1024, 3)  # both frames of one 448x1024 pair
 K4_MORE = [(1, 64, 192, 3), (4, 384, 448, 3)]
+# The train step (batch 8, 384x448): correlation levels 6..2 and the stem
+# on both frames of the 8 pairs.
+CORR_TRAIN = [(8, 6, 7, 196), (8, 12, 14, 128), (8, 24, 28, 96),
+              (8, 48, 56, 64), (8, 96, 112, 32)]
+STEM_TRAIN = (16, 384, 448, 3)
+STEM_RAGGED = [(2, 40, 72, 3), (1, 36, 100, 3), (2, 64, 192, 3)]
+TRAIN_STEPS = 10   # steps of the train_steps phase
+OVERFIT_STEPS = 30
+TRAIN_LAUNCHES = {"corr_fwd": 5, "corr_bwd_f1": 5, "corr_bwd_f2": 5,
+                  "stem_fwd": 1, "stem_bwd": 1}
 # Tolerances on max|kernel - plain| / max|plain|. f32: only the order of
 # f32 sums differs (TF32 off). bf16, correlation: the same f32 sums, then
 # one rounding to bf16, so at most one bf16 step (2**-8) apart. bf16, stem:
 # four layers each rounded to bf16 at slightly different points.
+# Backward kernels against the plain version's autograd gradients: the
+# correlation's as the forward's (f32 sums, one rounding); the stem's f32 as
+# its forward's, and in bf16 its error against an f32 oracle (f32 copies of
+# the same bf16 inputs) must stay within STEM_BWD_BF16 = (factor, floor):
+# factor x the plain bf16 autograd's error against that oracle, or floor.
 TOL = {("corr", torch.float32): 1e-5, ("corr", torch.bfloat16): 8e-3,
-       ("stem", torch.float32): 1e-4, ("stem", torch.bfloat16): 3e-2}
+       ("stem", torch.float32): 1e-4, ("stem", torch.bfloat16): 3e-2,
+       ("corr_bwd", torch.float32): 1e-5, ("corr_bwd", torch.bfloat16): 8e-3,
+       ("stem_bwd", torch.float32): 1e-4}
+STEM_BWD_BF16 = (3.0, 5e-3)
 FWD_TOL = 1e-4  # f32 forward, card kernels vs CPU plain ops, per level
+# One f32 train step (TF32 off), card vs CPU: loss, train_epe and
+# grad_norm within TRAIN_TOL (relative). Every parameter's gradient, card vs
+# CPU and card kernels vs the plain versions on the card, within
+# max|a - b| <= tol * max|b| with tol = max(TRAIN_TOL, FLOOR_FACTOR x floor):
+# floor is the CPU's own change of the same gradients when the input is
+# scaled by 1 + 1e-6 * N(0, 1) (three draws). The gradient of LeakyReLU (and
+# of the warp's coverage mask) jumps at its threshold, so a pre-activation
+# within rounding of 0 moves a gradient by up to a few 1e-3 of its max when
+# the forward changes in its last bits, as the card's convolutions do; the
+# kernels' own gradients are held to 1e-5 by k2/k3/k5_check.
+TRAIN_TOL = 1e-4
+FLOOR_FACTOR = 3.0
 
 RESULTS: list = []
 
@@ -97,6 +131,43 @@ class Timer:
         return statistics.median(times)
 
 
+def wall_ms(fn, reps: int = 20) -> float:
+    """Median host time of ``fn`` + synchronize, after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def profile_kernels(fn, n: int = 3):
+    """Device kernels of ``fn`` over n calls, from the profiler: (busy ms
+    per call, launches per call, the 15 largest by time). Kernel entries
+    only: an operator's entry repeats its kernels' time, and a user
+    annotation (such as the optimizer's step) overlaps them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by_name = sorted(((ev.key, ev.self_device_time_total / 1e3 / n,
+                       ev.count // n) for ev in prof.key_averages()
+                      if ev.device_type == DeviceType.CUDA
+                      and ev.self_device_time_total > 0
+                      and not getattr(ev, "is_user_annotation", False)),
+                     key=lambda t: -t[1])
+    return (sum(t[1] for t in by_name), sum(t[2] for t in by_name),
+            [{"name": k[:80], "ms": ms, "calls": c}
+             for k, ms, c in by_name[:15]])
+
+
 def bound_ms(bytes_moved: float, flops: float, dtype):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
@@ -118,6 +189,379 @@ def stem_cost(shape, dtype):
     return (n * h * w * 3 + n * l2 * 32) * s + n_w * 4, 2.0 * macs
 
 
+def corr_bwd_cost(shape, dtype):
+    """One of K2/K3: read g and one feature map, write one gradient."""
+    n, h, w, c = shape
+    s = torch.empty((), dtype=dtype).element_size()
+    return (n * h * w * 81 + 2 * n * h * w * c) * s, 2.0 * n * h * w * 81 * c
+
+
+def stem_bwd_cost(shape, dtype, with_im: bool):
+    """K5: read the image and the output gradient (and write d_im); work =
+    the forward (the activations are not inputs), one product per layer for
+    dW, and one per layer for the input gradient (conv1's only with d_im)."""
+    n, h, w, _ = shape
+    s = torch.empty((), dtype=dtype).element_size()
+    fwd_bytes, fwd_flops = stem_cost(shape, dtype)
+    conv1 = 2.0 * n * (h // 2) * (w // 2) * 16 * 27
+    flops = 3 * fwd_flops - (0 if with_im else conv1)
+    return fwd_bytes + (n * h * w * 3 * s if with_im else 0), flops
+
+
+def reset_launches(*modules) -> None:
+    for m in modules:
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+
+
+def check_corr_bwd(timer, dev, gen) -> dict:
+    """k2_check / k3_check: the backward kernels against autograd through
+    cost_volume_ref, same inputs and dtype; times at the train shapes."""
+    from pwcnet_tpu_torch.ops.cost_volume import cost_volume_ref
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    main = {"k2_check": {}, "k3_check": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in CORR_TRAIN + K1_RAGGED:
+            f1 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            f2 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            g = torch.randn(shape[:3] + (81,), device=dev,
+                            generator=gen).to(dtype)
+            got = ck.cost_volume_bwd_cuda(g, f1, f2)
+            a1, a2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+            want = torch.autograd.grad(cost_volume_ref(a1, a2), (a1, a2), g)
+            torch.cuda.synchronize()
+            tol = TOL[("corr_bwd", dtype)]
+            for i, phase in enumerate(("k2_check", "k3_check")):
+                err, rel = rel_err(got[i], want[i])
+                row = {"phase": phase, "shape": shape, "dtype": str(dtype),
+                       "max_abs_err": err, "rel_err": rel, "tol": tol}
+                if shape in CORR_TRAIN and dtype == torch.bfloat16:
+                    need = (i == 0, i == 1)
+                    a = (f1.clone().requires_grad_(need[0]),
+                         f2.clone().requires_grad_(need[1]))
+                    out = cost_volume_ref(*a)
+                    nbytes, flops = corr_bwd_cost(shape, dtype)
+                    b, tb, to = bound_ms(nbytes, flops, dtype)
+                    row.update(
+                        ms=timer(lambda: ck.cost_volume_bwd_cuda(
+                            g, f1, f2, need_f1=need[0], need_f2=need[1])),
+                        plain_ms=timer(lambda: torch.autograd.grad(
+                            out, a[i], g, retain_graph=True),
+                            reps=20, inner=2),
+                        bound_ms=b, bytes_ms=tb, ops_ms=to)
+                    del out
+                    main[phase][shape] = row
+                emit(row)
+                if not rel <= tol:
+                    raise AssertionError(f"{phase} disagrees at {shape} "
+                                         f"{dtype}: {rel} > {tol}")
+    return main
+
+
+def stem_params(dev, seed: int):
+    """The model's stem init, with non-zero biases (a wrong SAME-padding
+    mask shows only then)."""
+    from pwcnet_tpu_torch.models.init import init_params
+    from pwcnet_tpu_torch.models.layers import StemConvs
+    cpu_gen = torch.Generator().manual_seed(seed)
+    stem_mod = StemConvs(16, 32)
+    init_params(stem_mod, cpu_gen)
+    with torch.no_grad():
+        for conv in (stem_mod.conv1, stem_mod.conv2, stem_mod.conv3,
+                     stem_mod.conv4):
+            conv.bias.copy_(0.1 * torch.randn(conv.bias.shape,
+                                              generator=cpu_gen))
+    return stem_mod.to(dev).params()
+
+
+def check_stem_bwd(timer, dev, gen) -> dict:
+    """k5_check: the stem backward kernel against autograd through
+    stem_ref: f32 directly; bf16 by its error against an f32 oracle beside
+    the plain bf16 autograd's error. Times at the train shape."""
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
+    params = stem_params(dev, seed=2)
+    main = None
+
+    def plain_grads(im, ps, g):
+        a = im.clone().requires_grad_()
+        p = [(w.detach().clone().requires_grad_(),
+              b.detach().clone().requires_grad_()) for w, b in ps]
+        flat = [t for pair in p for t in pair]
+        return torch.autograd.grad(sk.stem_ref(a, p), [a, *flat], g)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in [STEM_TRAIN] + STEM_RAGGED:
+            im = torch.rand(shape, device=dev, generator=gen).to(dtype)
+            g = torch.randn((shape[0], shape[1] // 4, shape[2] // 4, 32),
+                            device=dev, generator=gen).to(dtype)
+            d_im, dp = sk.stem_bwd_cuda(im, params, g)
+            got = [d_im] + [t for pair in dp for t in pair]
+            plain = plain_grads(im, params, g)
+            if dtype == torch.float32:
+                errs = [rel_err(a, b) for a, b in zip(got, plain)]
+                tols = [TOL[("stem_bwd", dtype)]] * len(errs)
+                plain_rel = None
+            else:
+                oracle = plain_grads(
+                    im.float(), [(w.to(dtype).float(), b.to(dtype).float())
+                                 for w, b in params], g.float())
+                errs = [rel_err(a, b) for a, b in zip(got, oracle)]
+                plain_rel = [rel_err(a, b)[1] for a, b in zip(plain, oracle)]
+                tols = [max(STEM_BWD_BF16[0] * e, STEM_BWD_BF16[1])
+                        for e in plain_rel]
+            torch.cuda.synchronize()
+            rels = [e[1] for e in errs]
+            # Against the plain version in the same dtype (bf16: beside the
+            # oracle comparison that decides).
+            abs_vs_plain = max(rel_err(a, b)[0] for a, b in zip(got, plain))
+            row = {"phase": "k5_check", "shape": shape, "dtype": str(dtype),
+                   "grads": "d_im, dW1, db1, ..., dW4, db4",
+                   "max_abs_err": abs_vs_plain,
+                   "max_abs_err_vs_oracle": max(e[0] for e in errs),
+                   "rel_err": rels, "tol": tols, "plain_bf16_rel": plain_rel}
+            if shape == STEM_TRAIN and dtype == torch.bfloat16:
+                # The train step's form: no d_im (images need no gradient).
+                a = im.clone()
+                p = [(w.detach().clone().requires_grad_(),
+                      b.detach().clone().requires_grad_()) for w, b in params]
+                flat = [t for pair in p for t in pair]
+                out = sk.stem_ref(a, p)
+                nbytes, flops = stem_bwd_cost(shape, dtype, with_im=False)
+                b, tb, to = bound_ms(nbytes, flops, dtype)
+                row.update(
+                    ms=timer(lambda: sk.stem_bwd_cuda(im, params, g,
+                                                      need_im=False)),
+                    ms_with_d_im=timer(lambda: sk.stem_bwd_cuda(im, params,
+                                                                g)),
+                    plain_ms=timer(lambda: torch.autograd.grad(
+                        out, flat, g, retain_graph=True)),
+                    bound_ms=b, bytes_ms=tb, ops_ms=to)
+                del out
+                main = row
+            emit(row)
+            bad = [(r, t) for r, t in zip(rels, tols) if not r <= t]
+            if bad:
+                raise AssertionError(f"K5 disagrees at {shape} {dtype}: "
+                                     f"{bad}")
+    return main
+
+
+def time_train_shapes(timer, dev, gen) -> dict:
+    """K1 and K4 at the train step's shapes (bf16), for the kernels line."""
+    from pwcnet_tpu_torch.ops.cost_volume import cost_volume_ref
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
+    dtype = torch.bfloat16
+    rows = {"corr_fwd": [], "stem_fwd": []}
+    with torch.inference_mode():
+        for shape in CORR_TRAIN:
+            f1 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            f2 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            err = rel_err(ck.cost_volume_cuda(f1, f2),
+                          cost_volume_ref(f1, f2))[0]
+            nbytes, flops = corr_cost(shape, dtype)
+            b, tb, to = bound_ms(nbytes, flops, dtype)
+            rows["corr_fwd"].append(dict(
+                shape=shape, max_abs_err=err,
+                ms=timer(lambda: ck.cost_volume_cuda(f1, f2)),
+                plain_ms=timer(lambda: cost_volume_ref(f1, f2), inner=2),
+                bound_ms=b, bytes_ms=tb, ops_ms=to))
+        params = stem_params(dev, seed=3)
+        im = torch.rand(STEM_TRAIN, device=dev, generator=gen).to(dtype)
+        err = rel_err(sk.stem_cuda(im, params), sk.stem_ref(im, params))[0]
+        nbytes, flops = stem_cost(STEM_TRAIN, dtype)
+        b, tb, to = bound_ms(nbytes, flops, dtype)
+        rows["stem_fwd"].append(dict(
+            shape=STEM_TRAIN, max_abs_err=err,
+            ms=timer(lambda: sk.stem_cuda(im, params)),
+            plain_ms=timer(lambda: sk.stem_ref(im, params)),
+            bound_ms=b, bytes_ms=tb, ops_ms=to))
+    for name, rs in rows.items():
+        emit({"phase": "train_shape_times", "kernel": name, "rows": rs})
+    return rows
+
+
+# The trainer's log directories (checkpoints of ~100 MB each); removed at
+# the end, after its metrics are copied to the output directory.
+RUN_DIR = os.path.join("build", "chip_smoke_runs")
+
+
+def train_config(name: str, **train_kw):
+    import dataclasses
+    from pwcnet_tpu_torch.config import PRESETS
+    cfg = PRESETS["synthetic-proof"]
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, log_dir=os.path.join(RUN_DIR, name), **train_kw))
+
+
+def train_phases(out_dir: str, dev, smi: str, timer) -> dict:
+    """train_steps, overfit, train_f32_card_vs_cpu, train_times."""
+    import shutil
+    from pwcnet_tpu_torch.data.synthetic import make_device_batcher
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
+    from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
+    from pwcnet_tpu_torch.train.loop import build_model, train
+    from pwcnet_tpu_torch.train.schedule import optimizer_from_config
+    from pwcnet_tpu_torch.train.state import TrainState
+    from pwcnet_tpu_torch.train.step import make_train_step
+
+    # -- train_steps: the trainer's entry point on the card ----------------
+    cfg = train_config("train", summary_interval=1)
+    shutil.rmtree(cfg.train.log_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launches(ck, sk)
+    t0 = time.perf_counter()
+    final = train(cfg, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {**ck.LAUNCHES, **sk.LAUNCHES}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    with open(os.path.join(cfg.train.log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    steps = [{k: r[k] for k in ("step", "loss", "train_epe", "grad_norm",
+                                "lr")} for r in recs]
+    finite = all(np.isfinite([r["loss"], r["train_epe"], r["grad_norm"]]
+                             ).all() for r in steps)
+    ckpt = CheckpointManager(os.path.join(cfg.train.log_dir, "ckpt"))
+    ckpt_step = ckpt.latest_step
+    model = build_model(cfg)
+    fresh = TrainState.create(model, *optimizer_from_config(
+        model.parameters(), cfg.train), seed=cfg.train.seed + 1)
+    ckpt.restore(fresh)
+    saved = ckpt.load()["model"]
+    restored = (fresh.step == TRAIN_STEPS and all(
+        torch.equal(v.cpu(), saved[k]) for k, v in
+        fresh.model.state_dict().items())
+        and fresh.scheduler.last_epoch == TRAIN_STEPS)
+    resumed = train(cfg, max_steps=2)["step"]  # continues from the checkpoint
+    shutil.copy(os.path.join(cfg.train.log_dir, "metrics.jsonl"),
+                os.path.join(out_dir, "train_metrics.jsonl"))
+    shutil.rmtree(RUN_DIR)
+    emit({"phase": "train_steps", "config": "synthetic-proof, bf16, "
+          f"batch {cfg.train.global_batch}, {cfg.data.augment.crop_hw}",
+          "steps": steps, "final": final, "wall_s": wall_s,
+          "launches_per_step": per_step, "finite": finite,
+          "checkpoint_step": ckpt_step, "restored": restored,
+          "resumed_to_step": resumed})
+    if not finite or len(steps) != TRAIN_STEPS:
+        raise AssertionError(f"train steps not finite: {steps}")
+    if per_step != TRAIN_LAUNCHES:
+        raise AssertionError(f"expected {TRAIN_LAUNCHES} kernel launches per "
+                             f"train step, got {per_step}")
+    if not restored or resumed != TRAIN_STEPS + 2:
+        raise AssertionError(f"checkpoint round trip failed: restored="
+                             f"{restored}, resumed to {resumed}")
+
+    # -- overfit: one fixed batch, the preset's optimizer ------------------
+    cfg = train_config("overfit")
+    model = build_model(cfg)
+    opt, sched = optimizer_from_config(model.parameters(), cfg.train)
+    state = TrainState.create(model, opt, sched, seed=1)
+    step_fn = make_train_step(model, opt, sched)
+    batcher = make_device_batcher(cfg.train.global_batch,
+                                  cfg.data.augment.crop_hw, seed=5,
+                                  device=dev)
+    batch = batcher(0)
+    losses = []
+    for _ in range(OVERFIT_STEPS):
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+    emit({"phase": "overfit", "steps": OVERFIT_STEPS, "losses": losses})
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"overfit loss did not fall: {losses}")
+
+    # -- train_f32_card_vs_cpu: one f32 step, same weights and batch -------
+    import dataclasses
+    from unittest import mock
+
+    import pwcnet_tpu_torch.models.layers as layers_mod
+    import pwcnet_tpu_torch.models.pwcnet as pwcnet_mod
+    from pwcnet_tpu_torch.ops.cost_volume import cost_volume_ref
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32"))
+    small = make_device_batcher(2, (128, 192), seed=6, device="cpu")(0)
+    ref_state = build_model(cfg32, "cpu").state_dict()
+
+    def f32_step(where, im_noise=0.0, seed=0):
+        model = build_model(cfg32, where)
+        model.load_state_dict(ref_state)
+        opt, sched = optimizer_from_config(model.parameters(), cfg32.train)
+        step_fn = make_train_step(model, opt, sched)
+        batch = {k: v.clone() for k, v in small.items()}
+        if im_noise:
+            gen = torch.Generator().manual_seed(seed)
+            batch["im1"] *= 1 + im_noise * torch.randn(batch["im1"].shape,
+                                                       generator=gen)
+        _, m = step_fn(TrainState.create(model, opt, sched, seed=1),
+                       {k: v.to(where) for k, v in batch.items()})
+        return ({k: float(v) for k, v in m.items()},
+                {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+    def grad_rel(a, b):
+        return {n: rel_err(a[n], b[n])[1] for n in b}
+
+    m_cpu, g_cpu = f32_step("cpu")
+    m_card, g_card = f32_step(dev)
+    # The same step on the card with the plain versions in place of the
+    # kernels: the kernels' own share of the card-vs-CPU difference.
+    with mock.patch.object(pwcnet_mod, "cost_volume",
+                           lambda a, b, max_displacement: cost_volume_ref(
+                               a, b, max_displacement)), \
+            mock.patch.object(layers_mod, "stem", layers_mod.stem_ref):
+        _, g_plain = f32_step(dev)
+    # LeakyReLU and the warp's coverage mask make the gradient jump where an
+    # activation crosses its threshold, so any two f32 evaluations that
+    # differ in their last bits differ there. The floor: CPU steps whose
+    # frame-1 pixels are scaled by 1 + 1e-6 * N(0, 1), three draws.
+    floor = max(max(grad_rel(f32_step("cpu", 1e-6, s)[1], g_cpu).values())
+                for s in range(3))
+    metric_rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+                  for k in m_cpu}
+    vs_cpu, vs_plain = grad_rel(g_card, g_cpu), grad_rel(g_card, g_plain)
+    tol = max(TRAIN_TOL, FLOOR_FACTOR * floor)
+    emit({"phase": "train_f32_card_vs_cpu", "batch": [2, 128, 192],
+          "metrics_cpu": m_cpu, "metrics_card": m_card,
+          "metric_rel_err": metric_rel, "metric_tol": TRAIN_TOL,
+          "grad_rel_err_vs_cpu_max": max(vs_cpu.values()),
+          "grad_rel_err_vs_cpu_worst3": sorted(
+              vs_cpu.items(), key=lambda t: -t[1])[:3],
+          "cpu_floor_1e-6": floor, "grad_tol": tol,
+          "grad_rel_err_vs_card_plain_max": max(vs_plain.values()),
+          "grad_rel_err_vs_card_plain_worst3": sorted(
+              vs_plain.items(), key=lambda t: -t[1])[:3]})
+    if not (max(metric_rel.values()) <= TRAIN_TOL
+            and max(vs_cpu.values()) <= tol
+            and max(vs_plain.values()) <= tol):
+        raise AssertionError("f32 train step: card and CPU (or card plain) "
+                             "disagree beyond the tolerances")
+
+    # -- train_times: the bf16 step at batch 8 -----------------------------
+    cfg = train_config("times")
+    model = build_model(cfg)
+    opt, sched = optimizer_from_config(model.parameters(), cfg.train)
+    state = TrainState.create(model, opt, sched, seed=1)
+    step_fn = make_train_step(model, opt, sched)
+
+    def one_step():
+        step_fn(state, batch)
+
+    step_wall = wall_ms(one_step, reps=10)
+    step_dev = timer(one_step, reps=10, inner=1)
+    batch_wall = wall_ms(lambda: batcher(1), reps=10)
+    busy, n_launch, top = profile_kernels(one_step)
+    emit({"phase": "train_times", "dtype": "bfloat16",
+          "batch": [cfg.train.global_batch, *cfg.data.augment.crop_hw],
+          "ms_per_step_wall": step_wall, "ms_per_step_device": step_dev,
+          "pairs_per_s_wall": cfg.train.global_batch * 1e3 / step_wall,
+          "batch_render_ms_wall": batch_wall,
+          "device_busy_ms_per_step": busy,
+          "idle_share_of_wall": 1 - busy / step_wall,
+          "kernel_launches_per_step": n_launch, "top": top,
+          "nvidia_smi": smi})
+    return per_step
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -128,8 +572,6 @@ def main() -> int:
         return 1
     from pwcnet_tpu_torch import PWCNet, predict_flow
     from pwcnet_tpu_torch.io import read_flo, write_flo
-    from pwcnet_tpu_torch.models.init import init_params
-    from pwcnet_tpu_torch.models.layers import StemConvs
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume_ref
     from pwcnet_tpu_torch.ops.kernels import (build, cost_volume_kernel,
                                               stem_kernel)
@@ -188,17 +630,7 @@ def main() -> int:
                                          f"{rel} > {tol}")
 
     # -- 3. K4 against stem_ref --------------------------------------------
-    cpu_gen = torch.Generator().manual_seed(1)
-    stem_mod = StemConvs(16, 32)
-    init_params(stem_mod, cpu_gen)
-    with torch.no_grad():
-        for conv in (stem_mod.conv1, stem_mod.conv2, stem_mod.conv3,
-                     stem_mod.conv4):
-            # Non-zero biases: a wrong SAME-padding mask shows only then.
-            conv.bias.copy_(0.1 * torch.randn(conv.bias.shape,
-                                              generator=cpu_gen))
-    stem_mod.to(dev)
-    params = stem_mod.params()
+    params = stem_params(dev, seed=1)
     k4_main = None
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
@@ -226,6 +658,12 @@ def main() -> int:
                     raise AssertionError(f"K4 disagrees at {shape} {dtype}: "
                                          f"{rel} > {tol}")
 
+    # -- 3b. K2, K3 and K5 against autograd of the plain versions; K1 and
+    # K4 timed at the train step's shapes --------------------------------
+    corr_bwd_main = check_corr_bwd(timer, dev, gen)
+    k5_main = check_stem_bwd(timer, dev, gen)
+    train_shape = time_train_shapes(timer, dev, gen)
+
     # -- 4. The whole forward ----------------------------------------------
     rng = np.random.default_rng(0)
     base = rng.random((448, 1024, 3), np.float32)
@@ -236,12 +674,11 @@ def main() -> int:
     with torch.inference_mode():
         model(im1, im2)  # warm-up
         torch.cuda.synchronize()
-        cost_volume_kernel.LAUNCHES = 0
-        stem_kernel.LAUNCHES = 0
+        reset_launches(cost_volume_kernel, stem_kernel)
         flows = model(im1, im2)
         torch.cuda.synchronize()
-        launches = {"corr_fwd": cost_volume_kernel.LAUNCHES,
-                    "stem_fwd": stem_kernel.LAUNCHES}
+        launches = {k: v for m in (cost_volume_kernel, stem_kernel)
+                    for k, v in m.LAUNCHES.items() if v}
     shapes = [tuple(f.shape) for f in flows]
     finite = all(bool(torch.isfinite(f).all()) for f in flows)
     emit({"phase": "forward_bf16", "flow_shapes": shapes, "finite": finite,
@@ -289,18 +726,6 @@ def main() -> int:
         raise AssertionError(f"card and CPU forwards disagree: {worst}")
 
     # -- 5. Times -------------------------------------------------------------
-    def wall_ms(fn, reps=20):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(ts)
-
     with torch.inference_mode():
         b1_wall = wall_ms(lambda: model(im1, im2))
         b1_dev = timer(lambda: model(im1, im2), reps=20, inner=1)
@@ -312,51 +737,42 @@ def main() -> int:
           "frames_per_s_batch4_wall": 4e3 / b4_wall, "nvidia_smi": smi})
 
     # Where the device time of one bf16 448x1024 forward goes, by kernel.
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    n_prof = 3
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_prof):
-            model(im1, im2)
-        torch.cuda.synchronize()
-    # Kernel entries only: an operator's entry repeats its kernels' time.
-    by_name = sorted(((ev.key, ev.self_device_time_total / 1e3 / n_prof,
-                       ev.count // n_prof) for ev in prof.key_averages()
-                      if ev.device_type == DeviceType.CUDA
-                      and ev.self_device_time_total > 0),
-                     key=lambda t: -t[1])
-    busy = sum(t[1] for t in by_name)
+    with torch.inference_mode():
+        busy, n_launch, top = profile_kernels(lambda: model(im1, im2))
     emit({"phase": "forward_profile", "device_busy_ms_per_frame": busy,
           "idle_share_of_wall": 1 - busy / b1_wall,
-          "kernel_launches_per_frame": sum(t[2] for t in by_name),
-          "top": [{"name": k[:80], "ms": ms, "calls": c}
-                  for k, ms, c in by_name[:15]]})
+          "kernel_launches_per_frame": n_launch, "top": top})
 
-    # -- 6. Kernels ------------------------------------------------------------
-    k1 = list(k1_main.values())
-    k1_bytes = sum(r["bytes_ms"] for r in k1)
-    k1_ops = sum(r["ops_ms"] for r in k1)
+    # -- 5b. The trainer ------------------------------------------------
+    train_launches = train_phases(out_dir, dev, smi, timer)
+
+    # -- 6. Kernels: each at the train step's shapes (bf16), with its
+    # launches per train step ----------------------------------------------
+    def entry(name, source, replaces, rows):
+        nbytes = sum(r["bytes_ms"] for r in rows)
+        ops = sum(r["ops_ms"] for r in rows)
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": int(train_launches[name]),
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": sum(r["bound_ms"] for r in rows),
+                "bound_by": "bytes" if nbytes >= ops else "operations",
+                "library_ms": None}
+
+    ck, sk = cost_volume_kernel, stem_kernel
     kernels = [
-        {"name": "corr_fwd", "route": "cuda",
-         "source": cost_volume_kernel.SOURCE,
-         "replaces": cost_volume_kernel.REPLACES,
-         "launches": launches["corr_fwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in k1),
-         "ms": sum(r["ms"] for r in k1),
-         "plain_ms": sum(r["plain_ms"] for r in k1),
-         "bound_ms": sum(r["bound_ms"] for r in k1),
-         "bound_by": "bytes" if k1_bytes >= k1_ops else "operations",
-         "library_ms": None},
-        {"name": "stem_fwd", "route": "cuda", "source": stem_kernel.SOURCE,
-         "replaces": stem_kernel.REPLACES,
-         "launches": launches["stem_fwd"],
-         "max_abs_err": k4_main["max_abs_err"], "ms": k4_main["ms"],
-         "plain_ms": k4_main["plain_ms"], "bound_ms": k4_main["bound_ms"],
-         "bound_by": ("bytes" if k4_main["bytes_ms"] >= k4_main["ops_ms"]
-                      else "operations"),
-         "library_ms": None},
+        entry("corr_fwd", ck.SOURCE, ck.REPLACES, train_shape["corr_fwd"]),
+        entry("corr_bwd_f1", ck.BWD_SOURCE, ck.BWD_F1_REPLACES,
+              list(corr_bwd_main["k2_check"].values())),
+        entry("corr_bwd_f2", ck.BWD_SOURCE, ck.BWD_F2_REPLACES,
+              list(corr_bwd_main["k3_check"].values())),
+        entry("stem_fwd", sk.SOURCE, sk.REPLACES, train_shape["stem_fwd"]),
+        entry("stem_bwd", sk.SOURCE, sk.BWD_REPLACES, [k5_main]),
     ]
+    emit({"phase": "inference_kernels", "corr_fwd_ms_448x1024": sum(
+        r["ms"] for r in k1_main.values()), "stem_fwd_ms_448x1024":
+        k4_main["ms"], "launches_per_forward": launches})
     line = {"kernels": kernels}
     RESULTS.append(line)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

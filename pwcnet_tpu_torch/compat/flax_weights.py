@@ -2,8 +2,11 @@
 
 ``params`` is the nested dict of numpy arrays that
 ``jax.device_get(variables)["params"]`` gives for ``pwcnet_tpu``'s
-``PWCNet`` (with the fused stem, the default). Kernels are HWIO there and
-OIHW here. A missing key, an unused key or a wrong shape raises.
+``PWCNet``. Kernels are HWIO there and OIHW here. A tree in either layout of
+the pyramid's first two levels loads: the fused one (``StemConvs_0``, the
+default) and the plain one (``ConvBlock_0..3``, e.g. from a model with
+``min_level=1``); ``remap_stem_params`` converts between them. A missing
+key, an unused key or a wrong shape raises.
 """
 
 from __future__ import annotations
@@ -28,6 +31,50 @@ _RULES: Tuple[Tuple[str, str], ...] = (
      r"context.blocks.\1.conv/\2"),
     (r"^context/Conv_0/(kernel|bias)$", r"context.flow/\1"),
 )
+
+
+def remap_stem_params(extractor_params: Mapping, to_fused: bool) -> dict:
+    """Convert a ``FeaturePyramidExtractor`` parameter subtree between the
+    plain layout (``ConvBlock_0..``) and the fused one (``StemConvs_0`` +
+    ``ConvBlock_0..``), as ``pwcnet_tpu/train/checkpoint.py`` does: the four
+    stem convs map 1:1 (``StemConvs_0/conv{i}_kernel`` <->
+    ``ConvBlock_{i-1}/Conv_0/kernel``, biases likewise) and the remaining
+    ConvBlocks shift their index by 4."""
+    src = dict(extractor_params)
+    out: dict = {}
+    if to_fused:
+        stem = {}
+        for i in range(4):
+            blk = src.pop(f"ConvBlock_{i}")["Conv_0"]
+            stem[f"conv{i + 1}_kernel"] = blk["kernel"]
+            stem[f"conv{i + 1}_bias"] = blk["bias"]
+        out["StemConvs_0"] = stem
+        shift = -4
+    else:
+        stem = src.pop("StemConvs_0")
+        for i in range(4):
+            out[f"ConvBlock_{i}"] = {"Conv_0": {
+                "kernel": stem[f"conv{i + 1}_kernel"],
+                "bias": stem[f"conv{i + 1}_bias"]}}
+        shift = 4
+    for k, v in src.items():
+        if k.startswith("ConvBlock_"):
+            out[f"ConvBlock_{int(k.split('_')[1]) + shift}"] = v
+        else:
+            out[k] = v
+    return out
+
+
+def _to_model_layout(model: nn.Module, params: Mapping) -> Mapping:
+    """``params`` with its pyramid in the layout ``model`` has."""
+    fpe = params.get("FeaturePyramidExtractor_0")
+    if fpe is None:
+        return params
+    fused = getattr(model.pyramid, "stem", None) is not None
+    if fused == ("StemConvs_0" in fpe):
+        return params
+    return {**params, "FeaturePyramidExtractor_0":
+            remap_stem_params(fpe, to_fused=fused)}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -55,7 +102,7 @@ def load_flax_params(model: nn.Module, params: Mapping) -> None:
     """Fill ``model`` (a port ``PWCNet``) from flax ``params`` in place."""
     state = model.state_dict()
     filled = set()
-    for path, value in _flatten(params).items():
+    for path, value in _flatten(_to_model_layout(model, params)).items():
         key = torch_key(path)
         if key not in state:
             raise KeyError(f"flax parameter {path!r} maps to {key!r}, which "

@@ -1,0 +1,142 @@
+"""Config tree of the port: the JAX package's dataclasses (counterpart of
+``pwcnet_tpu/config.py``, which imports JAX through ``data.augment`` and so
+cannot be imported here) and its synthetic presets.
+
+Field names and defaults are the JAX package's, so a config reads the same
+in both. ``apply_overrides`` (the CLI's ``section.field=value``) comes with
+the CLI (ROADMAP A3).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional, Tuple
+
+from pwcnet_tpu_torch.train.schedule import S_FINE, S_LONG, ScheduleConfig
+
+__all__ = ["AugmentConfig", "Config", "DataConfig", "ModelConfig",
+           "ParallelConfig", "PRESETS", "S_FINE", "S_LONG", "ScheduleConfig",
+           "TrainConfig"]
+
+
+@dataclass(frozen=True)
+class AugmentConfig:
+    """Fields of ``pwcnet_tpu/data/augment.py:AugmentConfig``. The trainer
+    reads ``crop_hw`` (the size of device-generated batches); the
+    augmentation itself is not ported yet (ROADMAP A1)."""
+    crop_hw: Tuple[int, int] = (384, 448)
+    hflip_prob: float = 0.5
+    vflip_prob: float = 0.1
+    photometric: bool = True
+    brightness: float = 0.2
+    contrast: float = 0.4
+    gamma: Tuple[float, float] = (0.7, 1.5)
+    color: float = 0.3
+    noise_std: float = 0.02
+    asymmetric_prob: float = 0.2
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    family: str = "pwcnet"            # pwcnet | raft
+    raft_iters: int = 12
+    raft_radius: int = 4
+    num_levels: int = 6
+    output_level: int = 4
+    search_range: int = 4
+    residual: bool = True
+    use_norm: bool = False
+    input_norm: bool = False
+    input_center: bool = False
+    corr_backend: str = "pallas"
+    stem_backend: str = "auto"
+    context_s2b: Any = None
+    raft_gru_fuse: Any = None
+    flow_scale: float = 20.0
+    resize_mode: str = "half_pixel"
+    dtype: str = "bfloat16"           # float32 | bfloat16
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    name: str = "flyingchairs"
+    root: str = "/data/FlyingChairs_release/data"
+    crop_hw: Tuple[int, int] = (384, 448)
+    sample_hw: Tuple[int, int] = (384, 512)
+    eval_batch: int = 4
+    num_threads: int = 8
+    device_gen: bool = False          # synthetic batches made on the device
+    synthetic_regime: str = "smooth"  # smooth | hard
+    synthetic_val_length: int = 512
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    data: int = -1
+    spatial: int = 1
+    model: int = 1
+    coordinator: Optional[str] = None
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 8
+    schedule: ScheduleConfig = field(default_factory=lambda: S_LONG)
+    weight_decay: float = 4e-4
+    coupled_l2: bool = False          # torch Adam's coupled L2 vs AdamW
+    grad_clip: float = 0.0
+    loss: str = "multiscale"          # multiscale | robust
+    level_weights: Optional[Tuple[float, ...]] = None
+    seed: int = 0
+    log_dir: str = "runs/default"
+    summary_interval: int = 100
+    eval_interval: int = 5000
+    checkpoint_interval: int = 5000
+    max_to_keep: int = 5
+    resume: bool = True
+    init_from: Optional[str] = None
+    eval_limit: Optional[int] = None
+    profile_dir: Optional[str] = None
+    debug_nans: bool = False
+
+
+@dataclass(frozen=True)
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+
+
+# The JAX package's synthetic presets (procedural pairs with exact GT; no
+# dataset files). The file-dataset presets come with the datasets.
+PRESETS = {
+    "synthetic-proof": Config(
+        data=DataConfig(name="synthetic", root="-", crop_hw=(384, 448),
+                        sample_hw=(384, 448), eval_batch=8, device_gen=True),
+        train=TrainConfig(
+            global_batch=8,
+            schedule=ScheduleConfig(base_lr=1e-4,
+                                    milestones=(60_000, 90_000, 110_000),
+                                    total_steps=125_000),
+            summary_interval=200, eval_interval=2500,
+            checkpoint_interval=5000, eval_limit=128,
+            log_dir="runs/synthetic-proof"),
+    ),
+    "synthetic-hard": Config(
+        data=DataConfig(name="synthetic", root="-", crop_hw=(384, 448),
+                        sample_hw=(384, 448), eval_batch=8, device_gen=True,
+                        synthetic_regime="hard"),
+        train=TrainConfig(
+            global_batch=8,
+            schedule=ScheduleConfig(base_lr=1e-4,
+                                    milestones=(60_000, 90_000, 110_000),
+                                    total_steps=125_000),
+            summary_interval=200, eval_interval=2500,
+            checkpoint_interval=5000, eval_limit=512,
+            log_dir="runs/synthetic-hard"),
+    ),
+}

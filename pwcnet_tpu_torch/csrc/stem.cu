@@ -1,7 +1,9 @@
-// Fused PWC-Net stem (pyramid levels 1-2), written by hand for Hopper.
+// Fused PWC-Net stem (pyramid levels 1-2), forward and backward, written by
+// hand for Hopper.
 //
-// Replaces: pwcnet_tpu/ops/pallas/stem_kernel.py, _stem_kernel (launched by
-// _stem_impl; entry stem_pallas). Plain version: stem_ref beside the wrapper.
+// Forward (K4) replaces: pwcnet_tpu/ops/pallas/stem_kernel.py, _stem_kernel
+// (launched by _stem_impl; entry stem_pallas). The backward (K5) follows it
+// below. Plain version: stem_ref beside the wrappers.
 //
 // Four 3x3 convs, each + bias + LeakyReLU 0.1, with XLA "SAME" padding:
 //   conv1 3 -> 16 stride 2, conv2 16 -> 16, conv3 16 -> 32 stride 2,
@@ -179,6 +181,350 @@ stem_fwd(const T* __restrict__ im, const float* __restrict__ w1,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward (K5). Replaces pwcnet_tpu/ops/pallas/stem_kernel.py,
+// _stem_bwd_kernel (launched by _stem_backward_pallas; the VJP of
+// stem_pallas). A recompute backward: the residuals are only the image and
+// the weights. One block per level-2 tile of BH2 x BW2 pixels recomputes the
+// forward over the tile's halo regions (the same conv_layer calls as
+// stem_fwd, so the same rounded values and the same masks), then walks the
+// chain back with the incoming gradient restricted to its own tile:
+//   p4 = g * lrelu'(z4)                 on the tile
+//   G3 = conv4^T(p4), p3 = G3 * m3      on the tile's level-2 halo region
+//   G2 = conv3^T(p3), p2 = G2 * m2      on its level-1 region
+//   G1 = conv2^T(p2), p1 = G1 * m1      on its level-1 halo region
+//   d_im = conv1^T(p1)                  on its image region
+// with m = LeakyReLU' (1 where the activation is > 0, else 0.1, as torch's
+// leaky_relu backward takes it) times the forward's valid-extent mask.
+// dW_l = sum over the region of (input patch) x p_l and db_l = sum of p_l.
+// The chain is linear in g, so summing the tiles' contributions gives the
+// exact gradient: that is the JAX kernel's overlap-add. Each tile writes its
+// dW/db sums (f32, HWIO) to its own row of a partials buffer and its d_im
+// region to its own block; two more kernels reduce the partials over the
+// tiles and overlap-add the d_im blocks, each in a fixed order, so the
+// gradients are the same run to run (no atomics).
+//
+// Bound: about three times the forward's work (forward, then two products
+// per layer) plus the d_im blocks and dW partials in f32; the recompute of
+// the halo regions and the f32 CUDA-core FMAs put this first version far
+// above it (measured time in PERF.md).
+// ---------------------------------------------------------------------------
+
+constexpr int BH2 = 4, BW2 = 16;  // level-2 tile of the backward
+constexpr int BTHREADS = 512;
+constexpr int B_IMG_R = 4 * BH2 + 15, B_IMG_C = 4 * BW2 + 15;
+constexpr int B_L1A_R = 2 * BH2 + 7, B_L1A_C = 2 * BW2 + 7;
+constexpr int B_L1B_R = 2 * BH2 + 5, B_L1B_C = 2 * BW2 + 5;
+constexpr int B_L2A_R = BH2 + 2, B_L2A_C = BW2 + 2;
+constexpr int B_IMG_N = B_IMG_R * B_IMG_C;  // image region pixels
+// Activations, channel-major: image, conv1..conv3 outputs.
+constexpr int S_IMG = CIN * B_IMG_N;
+constexpr int S_Y1 = C1 * B_L1A_R * B_L1A_C;
+constexpr int S_Y2 = C1 * B_L1B_R * B_L1B_C;
+constexpr int S_Y3 = C2 * B_L2A_R * B_L2A_C;
+// Gradients p_l, pixel-major with an odd stride C + 1 (conflict-free both
+// when lanes run over channels and when they run over pixels).
+constexpr int S_P4 = BH2 * BW2 * (C2 + 1);
+constexpr int S_P3 = B_L2A_R * B_L2A_C * (C2 + 1);
+constexpr int S_P2 = B_L1B_R * B_L1B_C * (C1 + 1);
+constexpr int S_P1 = B_L1A_R * B_L1A_C * (C1 + 1);
+constexpr size_t BWD_SMEM_BYTES =
+    (S_IMG + S_Y1 + S_Y2 + S_Y3 + S_P4 + S_P3 + S_P2 + S_P1) * sizeof(float);
+static_assert(BWD_SMEM_BYTES <= 232448, "backward tile must fit 227 KB");
+
+// Offsets of the dW (HWIO) and db sums in a row of partials.
+constexpr int OFF_W1 = 0, OFF_B1 = OFF_W1 + 9 * CIN * C1;
+constexpr int OFF_W2 = OFF_B1 + C1, OFF_B2 = OFF_W2 + 9 * C1 * C1;
+constexpr int OFF_W3 = OFF_B2 + C1, OFF_B3 = OFF_W3 + 9 * C1 * C2;
+constexpr int OFF_W4 = OFF_B3 + C2, OFF_B4 = OFF_W4 + 9 * C2 * C2;
+constexpr int N_GRAD = OFF_B4 + C2;
+
+// dW[k][ci][co] = sum_{(r, c) < (out_r, out_c)} in[ci][S*r + ky][S*c + kx]
+// * p[(r, c)][co] and db[co] = sum p[(r, c)][co], into dst (one partials
+// row). Lanes run over co: p reads are contiguous, in reads broadcast.
+template <int CI, int CO, int S>
+__device__ void weight_grads(const float* in, int in_r, int in_c,
+                             const float* p, int out_r, int out_c,
+                             float* __restrict__ dst_w,
+                             float* __restrict__ dst_b) {
+  constexpr int NW = 9 * CI * CO;
+  const int plane = in_r * in_c;
+  const int npix = out_r * out_c;
+  for (int e = threadIdx.x; e < NW + CO; e += blockDim.x) {
+    const int co = e % CO;
+    float acc = 0.f;
+    if (e < NW) {
+      const int rest = e / CO, ci = rest % CI, k = rest / CI;
+      const float* src = in + ci * plane + (k / 3) * in_c + (k % 3);
+      for (int r = 0; r < out_r; ++r)
+        for (int c = 0; c < out_c; ++c)
+          acc = fmaf(src[S * r * in_c + S * c],
+                     p[(r * out_c + c) * (CO + 1) + co], acc);
+      dst_w[e] = acc;
+    } else {
+      for (int q = 0; q < npix; ++q) acc += p[q * (CO + 1) + co];
+      dst_b[co] = acc;
+    }
+  }
+}
+
+// The transpose of a 3x3 conv (stride S) from p (out_r x out_c pixels, CO
+// channels, pixel-major) back onto its input region (in_r x in_c, CI
+// channels), times the mask of that region: pnext[(j, k)][ci] =
+// m(j, k, ci) * sum over taps with S*r + ky = j, S*c + kx = k of
+// p[(r, c)][co] * W[ky][kx][ci][co]. wt is W as [ky][kx][co][ci] (f32).
+// m = 0 outside [0, valid_r) x [0, valid_c) (absolute position abs_r0 + j,
+// abs_c0 + k), else 1 where y[ci][j][k] > 0 and 0.1 elsewhere.
+template <int CI, int CO, int S>
+__device__ void grad_input(const float* p, int out_r, int out_c,
+                           const float* __restrict__ wt, const float* y,
+                           int in_r, int in_c, float* pnext, int abs_r0,
+                           int abs_c0, int valid_r, int valid_c) {
+  static_assert(CI % G == 0, "CI must be a multiple of G");
+  const int npix = in_r * in_c;
+  const int items = npix * (CI / G);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int g = it / npix, q = it % npix;
+    const int j = q / in_c, k = q % in_c;
+    float acc[G];
+#pragma unroll
+    for (int i = 0; i < G; ++i) acc[i] = 0.f;
+    for (int ky = 0; ky < 3; ++ky) {
+      const int rs = j - ky;
+      if (rs < 0 || rs % S) continue;
+      const int r = rs / S;
+      if (r >= out_r) continue;
+      for (int kx = 0; kx < 3; ++kx) {
+        const int cs = k - kx;
+        if (cs < 0 || cs % S) continue;
+        const int c = cs / S;
+        if (c >= out_c) continue;
+        const float* src = p + (r * out_c + c) * (CO + 1);
+        const float4* wk = reinterpret_cast<const float4*>(
+            wt + (ky * 3 + kx) * CO * CI + g * G);
+#pragma unroll 4
+        for (int co = 0; co < CO; ++co) {
+          const float v = src[co];
+#pragma unroll
+          for (int qq = 0; qq < G / 4; ++qq) {
+            const float4 wq = __ldg(wk + co * (CI / 4) + qq);
+            acc[4 * qq + 0] = fmaf(v, wq.x, acc[4 * qq + 0]);
+            acc[4 * qq + 1] = fmaf(v, wq.y, acc[4 * qq + 1]);
+            acc[4 * qq + 2] = fmaf(v, wq.z, acc[4 * qq + 2]);
+            acc[4 * qq + 3] = fmaf(v, wq.w, acc[4 * qq + 3]);
+          }
+        }
+      }
+    }
+    const int ar = abs_r0 + j, ac = abs_c0 + k;
+    const bool ok = ar >= 0 && ar < valid_r && ac >= 0 && ac < valid_c;
+#pragma unroll
+    for (int i = 0; i < G; ++i) {
+      const int ci = g * G + i;
+      const float m = !ok ? 0.f : (y[ci * npix + q] > 0.f ? 1.f : 0.1f);
+      pnext[q * (CI + 1) + ci] = acc[i] * m;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BTHREADS)
+stem_bwd(const T* __restrict__ im, const T* __restrict__ gout,
+         const float* __restrict__ w1, const float* __restrict__ b1,
+         const float* __restrict__ w2, const float* __restrict__ b2,
+         const float* __restrict__ w3, const float* __restrict__ b3,
+         const float* __restrict__ w4, const float* __restrict__ b4,
+         const float* __restrict__ wt1, const float* __restrict__ wt2,
+         const float* __restrict__ wt3, const float* __restrict__ wt4,
+         float* __restrict__ partials, float* __restrict__ dim_blocks,
+         int H, int W) {
+  extern __shared__ float smem[];
+  float* s_img = smem;
+  float* s_y1 = s_img + S_IMG;
+  float* s_y2 = s_y1 + S_Y1;
+  float* s_y3 = s_y2 + S_Y2;
+  float* s_p4 = s_y3 + S_Y3;
+  float* s_p3 = s_p4 + S_P4;
+  float* s_p2 = s_p3 + S_P3;
+  float* s_p1 = s_p2 + S_P2;
+  const int n = blockIdx.z;
+  const int r0 = blockIdx.y * BH2, c0 = blockIdx.x * BW2;
+  const int H1 = H / 2, W1 = W / 2, H2 = H / 4, W2 = W / 4;
+  const size_t tile =
+      (static_cast<size_t>(n) * gridDim.y + blockIdx.y) * gridDim.x +
+      blockIdx.x;
+  float* part = partials + tile * N_GRAD;
+
+  // ---- recompute: image rows [4r0 - 6, +B_IMG_R), zero outside ----
+  const T* imn = im + static_cast<size_t>(n) * H * W * CIN;
+  for (int e = threadIdx.x; e < B_IMG_N * CIN; e += blockDim.x) {
+    const int ci = e % CIN, p = e / CIN;
+    const int col = p % B_IMG_C, row = p / B_IMG_C;
+    const int y = 4 * r0 - 6 + row, x = 4 * c0 - 6 + col;
+    float v = 0.f;
+    if (y >= 0 && y < H && x >= 0 && x < W)
+      v = to_f32(imn[(static_cast<size_t>(y) * W + x) * CIN + ci]);
+    s_img[ci * B_IMG_N + p] = v;
+  }
+  __syncthreads();
+  conv_layer<T, CIN, C1, 2>(s_img, B_IMG_R, B_IMG_C, s_y1, B_L1A_R, B_L1A_C,
+                            B_L1A_R * B_L1A_C, B_L1A_C, 1, w1, b1,
+                            2 * r0 - 3, 2 * c0 - 3, H1, W1);
+  __syncthreads();
+  conv_layer<T, C1, C1, 1>(s_y1, B_L1A_R, B_L1A_C, s_y2, B_L1B_R, B_L1B_C,
+                           B_L1B_R * B_L1B_C, B_L1B_C, 1, w2, b2,
+                           2 * r0 - 2, 2 * c0 - 2, H1, W1);
+  __syncthreads();
+  conv_layer<T, C1, C2, 2>(s_y2, B_L1B_R, B_L1B_C, s_y3, B_L2A_R, B_L2A_C,
+                           B_L2A_R * B_L2A_C, B_L2A_C, 1, w3, b3,
+                           r0 - 1, c0 - 1, H2, W2);
+  __syncthreads();
+  // conv4's output (pixel-major) only gives the sign for lrelu'.
+  conv_layer<T, C2, C2, 1>(s_y3, B_L2A_R, B_L2A_C, s_p4, BH2, BW2,
+                           1, BW2 * (C2 + 1), C2 + 1, w4, b4,
+                           r0, c0, H2, W2);
+  __syncthreads();
+
+  // ---- p4 = g * lrelu'(z4) on the tile, 0 outside the level-2 extent ----
+  const T* gn = gout + static_cast<size_t>(n) * H2 * W2 * C2;
+  for (int e = threadIdx.x; e < BH2 * BW2 * C2; e += blockDim.x) {
+    const int co = e % C2, q = e / C2;
+    const int y = r0 + q / BW2, x = c0 + q % BW2;
+    float* dst = s_p4 + q * (C2 + 1) + co;
+    float v = 0.f;
+    if (y < H2 && x < W2)
+      v = to_f32(gn[(static_cast<size_t>(y) * W2 + x) * C2 + co]) *
+          (*dst > 0.f ? 1.f : 0.1f);
+    *dst = v;
+  }
+  __syncthreads();
+
+  // ---- back through conv4, conv3, conv2, conv1 ----
+  weight_grads<C2, C2, 1>(s_y3, B_L2A_R, B_L2A_C, s_p4, BH2, BW2,
+                          part + OFF_W4, part + OFF_B4);
+  grad_input<C2, C2, 1>(s_p4, BH2, BW2, wt4, s_y3, B_L2A_R, B_L2A_C, s_p3,
+                        r0 - 1, c0 - 1, H2, W2);
+  __syncthreads();
+  weight_grads<C1, C2, 2>(s_y2, B_L1B_R, B_L1B_C, s_p3, B_L2A_R, B_L2A_C,
+                          part + OFF_W3, part + OFF_B3);
+  grad_input<C1, C2, 2>(s_p3, B_L2A_R, B_L2A_C, wt3, s_y2, B_L1B_R, B_L1B_C,
+                        s_p2, 2 * r0 - 2, 2 * c0 - 2, H1, W1);
+  __syncthreads();
+  weight_grads<C1, C1, 1>(s_y1, B_L1A_R, B_L1A_C, s_p2, B_L1B_R, B_L1B_C,
+                          part + OFF_W2, part + OFF_B2);
+  grad_input<C1, C1, 1>(s_p2, B_L1B_R, B_L1B_C, wt2, s_y1, B_L1A_R, B_L1A_C,
+                        s_p1, 2 * r0 - 3, 2 * c0 - 3, H1, W1);
+  __syncthreads();
+  weight_grads<CIN, C1, 2>(s_img, B_IMG_R, B_IMG_C, s_p1, B_L1A_R, B_L1A_C,
+                           part + OFF_W1, part + OFF_B1);
+  if (dim_blocks == nullptr) return;
+
+  // ---- d_im on the image region: conv1^T(p1), into this tile's block ----
+  float* dst = dim_blocks + tile * (B_IMG_N * CIN);
+  for (int q = threadIdx.x; q < B_IMG_N; q += blockDim.x) {
+    const int j = q / B_IMG_C, k = q % B_IMG_C;
+    float acc[CIN] = {0.f, 0.f, 0.f};
+    for (int ky = 0; ky < 3; ++ky) {
+      const int rs = j - ky;
+      if (rs < 0 || rs % 2 || rs / 2 >= B_L1A_R) continue;
+      for (int kx = 0; kx < 3; ++kx) {
+        const int cs = k - kx;
+        if (cs < 0 || cs % 2 || cs / 2 >= B_L1A_C) continue;
+        const float* src = s_p1 + ((rs / 2) * B_L1A_C + cs / 2) * (C1 + 1);
+        const float* wk = wt1 + (ky * 3 + kx) * C1 * CIN;
+        for (int co = 0; co < C1; ++co) {
+          const float v = src[co];
+#pragma unroll
+          for (int ci = 0; ci < CIN; ++ci)
+            acc[ci] = fmaf(v, __ldg(wk + co * CIN + ci), acc[ci]);
+        }
+      }
+    }
+#pragma unroll
+    for (int ci = 0; ci < CIN; ++ci) dst[q * CIN + ci] = acc[ci];
+  }
+}
+
+// out[e] = sum over t < ntiles of partials[t][e], in the order of t. Lanes
+// run over e; the TH_R warps of a block take every TH_R-th tile, then warp 0
+// adds their sums in a fixed order.
+constexpr int TH_R = 8;
+__global__ void __launch_bounds__(32 * TH_R)
+reduce_partials(const float* __restrict__ partials, float* __restrict__ out,
+                int ntiles) {
+  __shared__ float s[TH_R][32];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  float acc = 0.f;
+  if (e < N_GRAD)
+    for (int t = threadIdx.y; t < ntiles; t += TH_R)
+      acc += partials[static_cast<size_t>(t) * N_GRAD + e];
+  s[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && e < N_GRAD) {
+    float sum = 0.f;
+    for (int i = 0; i < TH_R; ++i) sum += s[i][threadIdx.x];
+    out[e] = sum;
+  }
+}
+
+// d_im[n, y, x, ci] = sum of the d_im blocks of the tiles whose image
+// region holds (y, x), tile rows then tile columns in increasing order.
+template <typename T>
+__global__ void overlap_add(const float* __restrict__ blocks,
+                            T* __restrict__ dim, int N, int H, int W,
+                            int tiles_h, int tiles_w) {
+  const size_t total = static_cast<size_t>(N) * H * W * CIN;
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int ci = e % CIN;
+    const size_t p = e / CIN;
+    const int x = p % W, y = (p / W) % H, n = p / (static_cast<size_t>(W) * H);
+    // Tile t's image region starts at 4 * BH2 * t - 6 (rows) and spans
+    // B_IMG_R rows; columns likewise.
+    const int ty_lo = max(0, (y + 6 - B_IMG_R + 4 * BH2) / (4 * BH2));
+    const int ty_hi = min(tiles_h - 1, (y + 6) / (4 * BH2));
+    const int tx_lo = max(0, (x + 6 - B_IMG_C + 4 * BW2) / (4 * BW2));
+    const int tx_hi = min(tiles_w - 1, (x + 6) / (4 * BW2));
+    float acc = 0.f;
+    for (int ty = ty_lo; ty <= ty_hi; ++ty)
+      for (int tx = tx_lo; tx <= tx_hi; ++tx) {
+        const int j = y + 6 - 4 * BH2 * ty, k = x + 6 - 4 * BW2 * tx;
+        const size_t t = (static_cast<size_t>(n) * tiles_h + ty) * tiles_w + tx;
+        acc += blocks[(t * B_IMG_N + j * B_IMG_C + k) * CIN + ci];
+      }
+    store(dim + e, acc);
+  }
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* im, const void* gout,
+                       const float* const* wb, const float* const* wt,
+                       float* partials, float* grads, float* dim_blocks,
+                       void* dim, int n, int h, int w, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      stem_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(BWD_SMEM_BYTES));
+  if (e != cudaSuccess) return e;
+  const int tiles_h = (h / 4 + BH2 - 1) / BH2;
+  const int tiles_w = (w / 4 + BW2 - 1) / BW2;
+  const dim3 grid(tiles_w, tiles_h, n);
+  stem_bwd<T><<<grid, BTHREADS, BWD_SMEM_BYTES, stream>>>(
+      static_cast<const T*>(im), static_cast<const T*>(gout), wb[0], wb[1],
+      wb[2], wb[3], wb[4], wb[5], wb[6], wb[7], wt[0], wt[1], wt[2], wt[3],
+      partials, dim_blocks, h, w);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  const int ntiles = n * tiles_h * tiles_w;
+  reduce_partials<<<(N_GRAD + 31) / 32, dim3(32, TH_R), 0, stream>>>(
+      partials, grads, ntiles);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  if (dim_blocks != nullptr) {
+    overlap_add<T><<<1024, 256, 0, stream>>>(
+        dim_blocks, static_cast<T*>(dim), n, h, w, tiles_h, tiles_w);
+    e = cudaGetLastError();
+  }
+  return e;
+}
+
 template <typename T>
 cudaError_t launch(const void* im, const float* const* wb, void* out, int n,
                    int h, int w, cudaStream_t stream) {
@@ -212,5 +558,49 @@ extern "C" int pwc_stem_fwd(const void* im, const void* w1, const void* b1,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e = is_bf16 ? launch<__nv_bfloat16>(im, wb, out, n, h, w, s)
                           : launch<float>(im, wb, out, n, h, w, s);
+  return static_cast<int>(e);
+}
+
+// Number of f32 sums in a row of partials and in grads: dW1 (HWIO), db1,
+// dW2, db2, dW3, db3, dW4, db4, in that order.
+extern "C" int pwc_stem_bwd_grad_size() { return N_GRAD; }
+
+// Tiles of the backward: partials has (n * tiles) rows of the size above,
+// dim_blocks (n * tiles) blocks of (4*4 + 15) * (4*16 + 15) * 3 f32.
+extern "C" int pwc_stem_bwd_tiles(int n, int h, int w) {
+  return n * ((h / 4 + BH2 - 1) / BH2) * ((w / 4 + BW2 - 1) / BW2);
+}
+extern "C" int pwc_stem_bwd_block_size() { return B_IMG_N * CIN; }
+
+// im: (n, h, w, 3), gout: (n, h/4, w/4, 32), dim: like im; contiguous, bf16
+// when is_bf16 else f32. w1..b4 as for pwc_stem_fwd; wt1..wt4: the weights
+// as [ky][kx][co][ci] f32. partials, grads, dim_blocks: f32 scratch and
+// output of the sizes above. dim_blocks and dim may both be null: then d_im
+// is not computed. Returns the CUDA error.
+extern "C" int pwc_stem_bwd(const void* im, const void* gout, const void* w1,
+                            const void* b1, const void* w2, const void* b2,
+                            const void* w3, const void* b3, const void* w4,
+                            const void* b4, const void* wt1, const void* wt2,
+                            const void* wt3, const void* wt4, void* partials,
+                            void* grads, void* dim_blocks, void* dim, int n,
+                            int h, int w, int is_bf16, void* stream) {
+  const float* wb[8] = {
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const float*>(b2),
+      static_cast<const float*>(w3), static_cast<const float*>(b3),
+      static_cast<const float*>(w4), static_cast<const float*>(b4)};
+  const float* wt[4] = {
+      static_cast<const float*>(wt1), static_cast<const float*>(wt2),
+      static_cast<const float*>(wt3), static_cast<const float*>(wt4)};
+  if ((dim_blocks == nullptr) != (dim == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partials);
+  float* g = static_cast<float*>(grads);
+  float* db = static_cast<float*>(dim_blocks);
+  cudaError_t e =
+      is_bf16 ? launch_bwd<__nv_bfloat16>(im, gout, wb, wt, p, g, db, dim, n,
+                                          h, w, s)
+              : launch_bwd<float>(im, gout, wb, wt, p, g, db, dim, n, h, w, s);
   return static_cast<int>(e);
 }

@@ -58,9 +58,10 @@ class StemConvs(nn.Module):
     """Pyramid levels 1-2: conv s2 -> conv -> conv s2 -> conv, LeakyReLU 0.1
     after each. NHWC image in, NHWC level-2 features out.
 
-    On a CUDA tensor this runs the fused kernel (``csrc/stem.cu``), on a CPU
-    tensor the plain chain ``stem_ref``. ``backend="lax"`` asks for the
-    plain chain, which the port runs only on the CPU.
+    On a CUDA tensor this runs the fused kernels (``csrc/stem.cu``: K4
+    forward, K5 backward, through ``StemFunction``), on a CPU tensor the
+    plain chain ``stem_ref`` (autograd's gradients). ``backend="lax"`` asks
+    for the plain chain, which the port runs only on the CPU.
     """
 
     def __init__(self, c1: int, c2: int, backend: str = "auto"):

@@ -129,10 +129,11 @@ class ContextNetwork(nn.Module):
 
 
 class PWCNet(nn.Module):
-    """The coarse-to-fine PWC-Net forward, for inference.
+    """The coarse-to-fine PWC-Net forward, for inference and training.
 
-    Options follow the JAX ``PWCNet``. The correlation is the CUDA kernel
-    on the GPU and its plain version on the CPU (``corr_backend="pallas"``,
+    Options follow the JAX ``PWCNet``. The correlation and the stem are the
+    CUDA kernels on the GPU (differentiable: their backward is a kernel too)
+    and their plain versions on the CPU (``corr_backend="pallas"``,
     the only value ported). ``device=None`` means the GPU, and raises when
     there is none. Weights are drawn from ``generator`` (seed 0 when None)
     with the flax defaults' law.

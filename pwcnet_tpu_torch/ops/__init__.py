@@ -5,5 +5,8 @@ from pwcnet_tpu_torch.ops.cost_volume import (  # noqa: F401
     cost_volume,
     cost_volume_ref,
 )
-from pwcnet_tpu_torch.ops.resize import resize_bilinear  # noqa: F401
+from pwcnet_tpu_torch.ops.resize import (  # noqa: F401
+    downsample_bilinear,
+    resize_bilinear,
+)
 from pwcnet_tpu_torch.ops.warp import warp_bilinear  # noqa: F401

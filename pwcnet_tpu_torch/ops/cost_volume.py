@@ -6,7 +6,8 @@ Counterpart of ``pwcnet_tpu/ops/cost_volume.py``:
 
 for (dy, dx) in [-d, d]^2, zero outside the image, channel
 ``k = (dy + d) * (2d + 1) + (dx + d)``. Products and sums are f32; the
-output has the input dtype.
+output has the input dtype. Both versions are differentiable: the plain one
+through autograd, the kernel through ``CostVolumeFunction`` (K2, K3).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from pwcnet_tpu_torch.ops.kernels.cost_volume_kernel import cost_volume_cuda
+from pwcnet_tpu_torch.ops.kernels.cost_volume_kernel import cost_volume_fn
 
 
 def cost_volume_ref(f1: torch.Tensor, f2: torch.Tensor,
@@ -34,7 +35,7 @@ def cost_volume_ref(f1: torch.Tensor, f2: torch.Tensor,
 
 def cost_volume(f1: torch.Tensor, f2: torch.Tensor, *,
                 max_displacement: int = 4) -> torch.Tensor:
-    """The plain version on CPU tensors, the CUDA kernel on CUDA tensors."""
+    """The plain version on CPU tensors, the CUDA kernels on CUDA tensors."""
     if f1.device.type == "cpu":
         return cost_volume_ref(f1, f2, max_displacement)
-    return cost_volume_cuda(f1, f2, max_displacement)
+    return cost_volume_fn(f1, f2, max_displacement)

@@ -1,1 +1,2 @@
-"""Inference helpers (training is not ported yet)."""
+"""Training (loop, step, state, checkpoints, schedule, metrics) and
+inference helpers."""

@@ -13,13 +13,15 @@ import torch
 
 from pwcnet_tpu.ops.cost_volume import cost_volume_lax
 from pwcnet_tpu.ops.pallas.cost_volume_kernel import cost_volume_pallas
+from pwcnet_tpu.ops.pallas.stem_kernel import _stem_backward_pallas
 from pwcnet_tpu.ops.pallas.stem_kernel import stem_pallas
 from pwcnet_tpu.ops.pallas.stem_kernel import stem_ref as jax_stem_ref
 from pwcnet_tpu.ops.resize import resize_bilinear as jax_resize
 from pwcnet_tpu.ops.warp import warp_bilinear as jax_warp
 from pwcnet_tpu.ops.warp import warp_bilinear_ref as jax_warp_ref
 from pwcnet_tpu_torch.ops import (conv_same, cost_volume, cost_volume_ref,
-                                  resize_bilinear, warp_bilinear)
+                                  downsample_bilinear, resize_bilinear,
+                                  warp_bilinear)
 from pwcnet_tpu_torch.ops.kernels import (build, cost_volume_kernel,
                                           stem_kernel)
 
@@ -77,7 +79,7 @@ def test_cost_volume_ref_bf16_matches_lax():
 def test_cost_volume_dispatches_to_plain_on_cpu():
     rng = np.random.default_rng(2)
     f1 = _t(rng.standard_normal((1, 5, 6, 8)).astype(np.float32))
-    before = cost_volume_kernel.LAUNCHES
+    before = dict(cost_volume_kernel.LAUNCHES)
     np.testing.assert_array_equal(cost_volume(f1, f1).numpy(),
                                   cost_volume_ref(f1, f1).numpy())
     assert cost_volume_kernel.LAUNCHES == before
@@ -104,6 +106,57 @@ def test_cost_volume_kernel_matches_plain(shape, dtype, tol):
         want = cost_volume_ref(f1, f2).float()
     torch.cuda.synchronize()
     assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("shape", [(2, 7, 13, 5), (1, 9, 20, 33),
+                                   (3, 6, 7, 16)])
+def test_cost_volume_plain_backward_matches_jax(shape, d):
+    """K2 and K3's plain version (autograd through cost_volume_ref) against
+    the JAX VJP through the Pallas kernels in interpret mode."""
+    rng = np.random.default_rng(10)
+    f1 = rng.standard_normal(shape).astype(np.float32)
+    f2 = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape[:3] + ((2 * d + 1) ** 2,)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda a, b: cost_volume_pallas(
+        a, b, max_displacement=d, interpret=True), jnp.asarray(f1),
+        jnp.asarray(f2))
+    want = vjp(jnp.asarray(g))
+    a1, a2 = _t(f1).requires_grad_(), _t(f2).requires_grad_()
+    got = torch.autograd.grad(cost_volume(a1, a2, max_displacement=d),
+                              (a1, a2), _t(g))
+    for gt, wt in zip(got, want):
+        assert gt.shape == shape
+        assert _rel_err(gt.numpy(), wt) <= 1e-5
+
+
+def test_cost_volume_backward_wrapper_refuses_cpu_tensors():
+    f, g = torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 81)
+    with pytest.raises(ValueError, match="CUDA"):
+        cost_volume_kernel.cost_volume_bwd_cuda(g, f, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("shape", [(2, 7, 13, 5), (8, 6, 7, 196),
+                                   (3, 20, 70, 32)])
+def test_cost_volume_backward_kernels_match_plain(shape, dtype, tol):
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    f1, f2 = (torch.randn(shape, device="cuda", generator=g).to(dtype)
+              for _ in range(2))
+    go = torch.randn(shape[:3] + (81,), device="cuda", generator=g).to(dtype)
+    a1, a2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    got = torch.autograd.grad(cost_volume(a1, a2), (a1, a2), go)
+    b1, b2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+    want = torch.autograd.grad(cost_volume_ref(b1, b2), (b1, b2), go)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert x.dtype == dtype
+        assert (x.float() - y.float()).abs().max() <= tol * y.float().abs(
+        ).max()
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +193,7 @@ def test_stem_dispatches_to_plain_on_cpu():
     rng = np.random.default_rng(4)
     im = _t(rng.random((1, 16, 24, 3), np.float32))
     params = _torch_stem_params(_stem_params(rng))
-    before = stem_kernel.LAUNCHES
+    before = dict(stem_kernel.LAUNCHES)
     np.testing.assert_array_equal(stem_kernel.stem(im, params).numpy(),
                                   stem_kernel.stem_ref(im, params).numpy())
     assert stem_kernel.LAUNCHES == before
@@ -168,6 +221,80 @@ def test_stem_kernel_matches_plain(shape, dtype, tol):
         want = stem_kernel.stem_ref(im, params).float()
     torch.cuda.synchronize()
     assert (got - want).abs().max() <= tol * want.abs().max()
+
+
+@pytest.mark.parametrize("hw", [(40, 64), (36, 96), (96, 256), (40, 112)])
+def test_stem_plain_backward_matches_jax(hw):
+    """K5's plain version (autograd through stem_ref) against the Pallas
+    backward kernel in interpret mode and against jax.vjp(stem_ref), for
+    the image and all eight parameters."""
+    rng = np.random.default_rng(11)
+    im = rng.random((2, *hw, 3), np.float32)
+    params = _stem_params(rng)
+    g = rng.standard_normal((2, hw[0] // 4, hw[1] // 4, 32)).astype(
+        np.float32)
+    jparams = tuple((jnp.asarray(w), jnp.asarray(b)) for w, b in params)
+    k_im, k_params = _stem_backward_pallas(jnp.asarray(im), jparams,
+                                           jnp.asarray(g), interpret=True)
+    _, vjp = jax.vjp(jax_stem_ref, jnp.asarray(im), jparams)
+    r_im, r_params = vjp(jnp.asarray(g))
+    a = _t(im).requires_grad_()
+    tp = [(w.requires_grad_(), b.requires_grad_())
+          for w, b in _torch_stem_params(params)]
+    got = torch.autograd.grad(stem_kernel.stem(a, tp),
+                              [a, *[t for pair in tp for t in pair]], _t(g))
+    for want_im, want_p in ((k_im, k_params), (r_im, r_params)):
+        assert _rel_err(got[0].numpy(), want_im) <= 1e-5
+        for i, (w, b) in enumerate(want_p):
+            assert _rel_err(got[1 + 2 * i].numpy().transpose(2, 3, 1, 0),
+                            w) <= 1e-5
+            assert _rel_err(got[2 + 2 * i].numpy(), b) <= 1e-5
+
+
+def test_stem_backward_wrapper_refuses_cpu_tensors():
+    params = _torch_stem_params(_stem_params(np.random.default_rng(12)))
+    with pytest.raises(ValueError, match="CUDA"):
+        stem_kernel.stem_bwd_cuda(torch.zeros(1, 8, 8, 3), params,
+                                  torch.zeros(1, 2, 2, 32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 40, 72, 3), (1, 36, 100, 3)])
+def test_stem_backward_kernel_matches_plain(shape, dtype):
+    """f32: within 1e-4 of autograd through stem_ref. bf16: within
+    max(3 x the plain bf16 error, 5e-3) of an f32 oracle on the same
+    bf16-rounded inputs, as tests/test_stem_kernel.py holds the Pallas
+    backward."""
+    _need_cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(13)
+    params = [(w.cuda(), b.cuda())
+              for w, b in _torch_stem_params(_stem_params(rng))]
+    im = _t(rng.random(shape, np.float32)).cuda().to(dtype)
+    g = _t(rng.standard_normal((shape[0], shape[1] // 4, shape[2] // 4, 32))
+           .astype(np.float32)).cuda().to(dtype)
+
+    def plain(im, ps, g):
+        a = im.clone().requires_grad_()
+        p = [(w.clone().requires_grad_(), b.clone().requires_grad_())
+             for w, b in ps]
+        flat = [t for pair in p for t in pair]
+        return torch.autograd.grad(stem_kernel.stem_ref(a, p), [a, *flat], g)
+
+    d_im, dp = stem_kernel.stem_bwd_cuda(im, params, g)
+    got = [d_im] + [t for pair in dp for t in pair]
+    want = plain(im, params, g)
+    if dtype == torch.float32:
+        for x, y in zip(got, want):
+            assert _rel_err(x.cpu(), y.cpu()) <= 1e-4
+        return
+    oracle = plain(im.float(), [(w.to(dtype).float(), b.to(dtype).float())
+                                for w, b in params], g.float())
+    for x, y, o in zip(got, want, oracle):
+        err_k = _rel_err(x.float().cpu(), o.cpu())
+        err_x = _rel_err(y.float().cpu(), o.cpu())
+        assert err_k <= max(3 * err_x, 5e-3), (err_k, err_x)
 
 
 # ---------------------------------------------------------------------------
@@ -231,6 +358,26 @@ def test_resize_matches_jax(mode, in_hw, out_hw):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("in_hw,out_hw", [((384, 448), (96, 112)),
+                                          ((384, 448), (6, 7)),
+                                          ((64, 96), (25, 40)),
+                                          ((40, 24), (10, 6))])
+def test_downsample_matches_jax_resize(in_hw, out_hw):
+    """jax.image.resize antialiases when it shrinks; so does the port's
+    downsample (F.interpolate(antialias=True)), for flows and masks."""
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2, *in_hw, 2)).astype(np.float32)
+    want = np.asarray(jax.image.resize(jnp.asarray(x), (2, *out_hw, 2),
+                                       "bilinear"))
+    np.testing.assert_allclose(downsample_bilinear(_t(x), out_hw).numpy(),
+                               want, atol=1e-6, rtol=0)
+    m = (rng.random((2, *in_hw)) > 0.5).astype(np.float32)
+    want_m = np.asarray(jax.image.resize(jnp.asarray(m), (2, *out_hw),
+                                         "bilinear"))
+    np.testing.assert_allclose(downsample_bilinear(_t(m), out_hw).numpy(),
+                               want_m, atol=1e-6, rtol=0)
+
+
 def test_resize_half_pixel_refuses_downsampling():
     with pytest.raises(ValueError, match="upsamples"):
         resize_bilinear(torch.zeros(1, 8, 8, 2), (4, 4))
@@ -241,8 +388,9 @@ def test_resize_half_pixel_refuses_downsampling():
 # ---------------------------------------------------------------------------
 
 def test_build_knows_both_kernel_sources():
-    assert build.kernel_names() == ["cost_volume", "stem"]
-    src = {cost_volume_kernel.SOURCE, stem_kernel.SOURCE}
+    assert build.kernel_names() == ["cost_volume", "cost_volume_bwd", "stem"]
+    src = {cost_volume_kernel.SOURCE, cost_volume_kernel.BWD_SOURCE,
+           stem_kernel.SOURCE}
     assert src == {f"pwcnet_tpu_torch/csrc/{n}.cu"
                    for n in build.kernel_names()}
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)

@@ -86,6 +86,31 @@ def test_wrong_shape_raises():
         load_flax_params(PWCNet(device="cpu"), params)
 
 
+def test_plain_stem_layout_loads_as_the_fused_one():
+    """A flax tree whose pyramid starts with plain ConvBlocks (the layout
+    of min_level=1 models and of checkpoints from before the fused stem)
+    loads into the fused-stem port, and a fused tree into a port model
+    without a stem: the weight bridge remaps as
+    pwcnet_tpu/train/checkpoint.py:remap_stem_params does."""
+    from pwcnet_tpu.train.checkpoint import remap_stem_params as jax_remap
+    from pwcnet_tpu_torch.compat.flax_weights import remap_stem_params
+    params = _param_tree()
+    fpe = params["FeaturePyramidExtractor_0"]
+    plain_fpe = remap_stem_params(fpe, to_fused=False)
+    want = jax_remap(fpe, to_fused=False)
+    assert _flatten(plain_fpe).keys() == _flatten(want).keys()
+    fused = PWCNet(device="cpu")
+    load_flax_params(fused, params)
+    remapped = PWCNet(device="cpu", generator=torch.Generator().manual_seed(9))
+    load_flax_params(remapped, {**params,
+                                "FeaturePyramidExtractor_0": plain_fpe})
+    for k, v in fused.state_dict().items():
+        assert torch.equal(v, remapped.state_dict()[k]), k
+    back = remap_stem_params(plain_fpe, to_fused=True)
+    for k, v in _flatten(fpe).items():
+        np.testing.assert_array_equal(_flatten(back)[k], v)
+
+
 def test_init_follows_lecun_normal():
     model = PWCNet(device="cpu", generator=torch.Generator().manual_seed(3))
     w = model.estimators["l6"].stack.blocks[0].conv.weight.detach()
