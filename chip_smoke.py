@@ -5,16 +5,20 @@
 
 Builds the CUDA kernels from ``pwcnet_tpu_torch/csrc`` into ``build/``,
 holds each against its plain PyTorch version on the card (forward kernels
-K1, K4 on their outputs; backward kernels K2, K3, K5 on the gradients),
-drives the PWC-Net inference forward (bf16, 448x1024, random seeded
-weights) and the trainer (``train(synthetic-proof)``, bf16, 8 x 384x448)
-through the kernels, checks flows, losses, launch counts, a checkpoint
-round trip, an overfit run and an f32 step against the CPU, and times the
-kernels, the forward and the train step with CUDA events. Each phase prints
-one JSON line; any failure raises and the script exits non-zero. Without a
-CUDA device it exits 1 at once. The last line is ``{"ok": true, "device":
-{...}}``; every phase's result, the predicted flow and the trainer's logs
-go to ``DIR`` (default ``build/chip_smoke``).
+K1, K4, K6 on their outputs; backward kernels K2, K3, K5 and K6's autograd
+Function on the gradients), drives the PWC-Net inference forward (bf16,
+448x1024, random seeded weights) with ``corr_backend="pallas"`` and
+``"fused"``, the trainer (``train(synthetic-proof)``, bf16, 8 x 384x448) and
+the fused train step through the kernels, checks flows, losses, launch
+counts, a checkpoint round trip, an overfit run and f32 steps against the
+CPU, measures K6 against warp + K1 per level (the crossover behind
+``FUSED_MIN_PIXELS``), runs the command line (``predict``, ``eval``, a
+``train`` that crosses ``eval_interval``) in subprocesses, and times the
+kernels, the forwards and the train steps with CUDA events. Each phase
+prints one JSON line; any failure raises and the script exits non-zero.
+Without a CUDA device it exits 1 at once. The last line is ``{"ok": true,
+"device": {...}}``; every phase's result, the predicted flows and the
+trainer's logs go to ``DIR`` (default ``build/chip_smoke``).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -47,6 +51,20 @@ CORR_TRAIN = [(8, 6, 7, 196), (8, 12, 14, 128), (8, 24, 28, 96),
               (8, 48, 56, 64), (8, 96, 112, 32)]
 STEM_TRAIN = (16, 384, 448, 3)
 STEM_RAGGED = [(2, 40, 72, 3), (1, 36, 100, 3), (2, 64, 192, 3)]
+# K6 at the warped levels (5..2) of a 448x1024 pair and of the train step,
+# ragged shapes, and a width the Pallas entry cannot tile.
+K6_MAIN = K1_MAIN[1:]
+K6_TRAIN = CORR_TRAIN[1:]
+K6_RAGGED = [(2, 7, 13, 5), (1, 9, 33, 196), (3, 20, 70, 32),
+             (1, 16, 8192, 8)]
+# Flows in pixels at a level: N(0, 1) times 1, 4 and 16, and exact
+# integers in [-3, 3] with a quarter of the pixels +-1000 px outside.
+K6_FLOWS = ("normal1", "normal4", "normal16", "integer_and_far")
+K6_GRAD_SHAPES = [(1, 16, 24, 8), (8, 48, 56, 64), (2, 20, 70, 32)]
+FUSED_FWD_LAUNCHES = {"warp_corr_fwd": 4, "corr_fwd": 1, "stem_fwd": 1}
+FUSED_TRAIN_LAUNCHES = {"warp_corr_fwd": 4, "corr_fwd": 1, "corr_bwd_f1": 5,
+                        "corr_bwd_f2": 5, "stem_fwd": 1, "stem_bwd": 1}
+FUSED_TRAIN_STEPS = 3
 TRAIN_STEPS = 10   # steps of the train_steps phase
 OVERFIT_STEPS = 30
 TRAIN_LAUNCHES = {"corr_fwd": 5, "corr_bwd_f1": 5, "corr_bwd_f2": 5,
@@ -178,6 +196,15 @@ def corr_cost(shape, dtype):
     n, h, w, c = shape
     s = torch.empty((), dtype=dtype).element_size()
     return (2 * n * h * w * c + n * h * w * 81) * s, 2.0 * n * h * w * 81 * c
+
+
+def warp_corr_cost(shape, dtype):
+    """K6: read f1, f2 and the f32 flow, write the correlation; the blend
+    (4 products a channel) and the 81 taps."""
+    n, h, w, c = shape
+    s = torch.empty((), dtype=dtype).element_size()
+    return ((2 * n * h * w * c + n * h * w * 81) * s + n * h * w * 2 * 4,
+            2.0 * n * h * w * c * (81 + 4))
 
 
 def stem_cost(shape, dtype):
@@ -477,14 +504,16 @@ def train_phases(out_dir: str, dev, smi: str, timer) -> dict:
 
     import pwcnet_tpu_torch.models.layers as layers_mod
     import pwcnet_tpu_torch.models.pwcnet as pwcnet_mod
+    from pwcnet_tpu_torch import PWCNet
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume_ref
     cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, dtype="float32"))
     small = make_device_batcher(2, (128, 192), seed=6, device="cpu")(0)
     ref_state = build_model(cfg32, "cpu").state_dict()
 
-    def f32_step(where, im_noise=0.0, seed=0):
-        model = build_model(cfg32, where)
+    def f32_step(where, im_noise=0.0, seed=0, fused=False):
+        model = PWCNet(corr_backend="fused", fused_min_pixels=0,
+                       device=where) if fused else build_model(cfg32, where)
         model.load_state_dict(ref_state)
         opt, sched = optimizer_from_config(model.parameters(), cfg32.train)
         step_fn = make_train_step(model, opt, sched)
@@ -520,6 +549,12 @@ def train_phases(out_dir: str, dev, smi: str, timer) -> dict:
                   for k in m_cpu}
     vs_cpu, vs_plain = grad_rel(g_card, g_cpu), grad_rel(g_card, g_plain)
     tol = max(TRAIN_TOL, FLOOR_FACTOR * floor)
+    # The fused model (K6 at every warped level) on the card against the
+    # same CPU step: on the CPU the fused op is the composed plain ops.
+    m_fused, g_fused = f32_step(dev, fused=True)
+    fused_metric_rel = {k: abs(m_fused[k] - m_cpu[k]) / abs(m_cpu[k])
+                        for k in m_cpu}
+    fused_vs_cpu = grad_rel(g_fused, g_cpu)
     emit({"phase": "train_f32_card_vs_cpu", "batch": [2, 128, 192],
           "metrics_cpu": m_cpu, "metrics_card": m_card,
           "metric_rel_err": metric_rel, "metric_tol": TRAIN_TOL,
@@ -529,9 +564,15 @@ def train_phases(out_dir: str, dev, smi: str, timer) -> dict:
           "cpu_floor_1e-6": floor, "grad_tol": tol,
           "grad_rel_err_vs_card_plain_max": max(vs_plain.values()),
           "grad_rel_err_vs_card_plain_worst3": sorted(
-              vs_plain.items(), key=lambda t: -t[1])[:3]})
+              vs_plain.items(), key=lambda t: -t[1])[:3],
+          "fused_metric_rel_err": fused_metric_rel,
+          "fused_grad_rel_err_vs_cpu_max": max(fused_vs_cpu.values()),
+          "fused_grad_rel_err_vs_cpu_worst3": sorted(
+              fused_vs_cpu.items(), key=lambda t: -t[1])[:3]})
     if not (max(metric_rel.values()) <= TRAIN_TOL
+            and max(fused_metric_rel.values()) <= TRAIN_TOL
             and max(vs_cpu.values()) <= tol
+            and max(fused_vs_cpu.values()) <= tol
             and max(vs_plain.values()) <= tol):
         raise AssertionError("f32 train step: card and CPU (or card plain) "
                              "disagree beyond the tolerances")
@@ -562,6 +603,328 @@ def train_phases(out_dir: str, dev, smi: str, timer) -> dict:
     return per_step
 
 
+def k6_flow(shape, kind, dev, gen):
+    n, h, w, _ = shape
+    if kind.startswith("normal"):
+        return float(kind[6:]) * torch.randn((n, h, w, 2), device=dev,
+                                             generator=gen)
+    flow = torch.randint(-3, 4, (n, h, w, 2), device=dev,
+                         generator=gen).float()
+    far = torch.rand((n, h, w), device=dev, generator=gen) < 0.25
+    sign = torch.where(torch.rand((n, h, w, 2), device=dev, generator=gen)
+                       < 0.5, -1.0, 1.0)
+    return torch.where(far[..., None], 1000.0 * sign, flow)
+
+
+def check_k6(timer, dev, gen) -> dict:
+    """k6_check: K6 against warp_corr_ref (K1's tolerances) at the warped
+    levels of a 448x1024 pair and of the train step, ragged shapes and
+    W = 8192, for every flow kind; times in bf16 at the first two sets
+    (normal4 flows); then WarpCorrFunction's gradients against autograd
+    through the plain version."""
+    from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
+    from pwcnet_tpu_torch.ops.warp_corr import warp_corr_ref
+    timed = {"main": {}, "train": {}}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape in K6_MAIN + K6_TRAIN + K6_RAGGED:
+                f1 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                f2 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                errs = {}
+                for kind in K6_FLOWS:
+                    flow = k6_flow(shape, kind, dev, gen)
+                    got = wk.warp_corr_cuda(f1, f2, flow)
+                    want = warp_corr_ref(f1, f2, flow)
+                    torch.cuda.synchronize()
+                    errs[kind] = rel_err(got, want)
+                    if kind == "integer_and_far":
+                        far = (flow.abs() == 1000).any(-1)
+                        if not bool((got[..., 40][far] == 0).all()):
+                            raise AssertionError(f"K6 at {shape}: far-out "
+                                                 "pixels are not 0")
+                tol = TOL[("corr", dtype)]
+                row = {"phase": "k6_check", "shape": shape,
+                       "dtype": str(dtype),
+                       "max_abs_err": max(e[0] for e in errs.values()),
+                       "rel_err": {k: e[1] for k, e in errs.items()},
+                       "tol": tol}
+                where = ("main" if shape in K6_MAIN else "train"
+                         if shape in K6_TRAIN else None)
+                if where and dtype == torch.bfloat16:
+                    flow = k6_flow(shape, "normal4", dev, gen)
+                    nbytes, flops = warp_corr_cost(shape, dtype)
+                    b, tb, to = bound_ms(nbytes, flops, dtype)
+                    row.update(
+                        ms=timer(lambda: wk.warp_corr_cuda(f1, f2, flow)),
+                        plain_ms=timer(lambda: warp_corr_ref(f1, f2, flow),
+                                       inner=2),
+                        bound_ms=b, bytes_ms=tb, ops_ms=to)
+                    timed[where][shape] = row
+                emit(row)
+                bad = {k: e[1] for k, e in errs.items() if not e[1] <= tol}
+                if bad:
+                    raise AssertionError(f"K6 disagrees at {shape} {dtype}: "
+                                         f"{bad} > {tol}")
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in K6_GRAD_SHAPES:
+            kind = "integer_and_far" if shape[0] == 2 else "normal4"
+            ins = [torch.randn(shape, device=dev, generator=gen).to(dtype),
+                   torch.randn(shape, device=dev, generator=gen).to(dtype),
+                   k6_flow(shape, kind, dev, gen)]
+            g = torch.randn(shape[:3] + (81,), device=dev,
+                            generator=gen).to(dtype)
+            a = [t.clone().requires_grad_() for t in ins]
+            got = torch.autograd.grad(wk.warp_corr_fn(*a), a, g)
+            b = [t.clone().requires_grad_() for t in ins]
+            want = torch.autograd.grad(warp_corr_ref(*b), b, g)
+            torch.cuda.synchronize()
+            rels = [rel_err(x, y)[1] for x, y in zip(got, want)]
+            tol = TOL[("corr_bwd", dtype)]
+            emit({"phase": "k6_grad_check", "shape": shape,
+                  "dtype": str(dtype), "flow": kind,
+                  "grads": "df1, df2, dflow", "rel_err": rels, "tol": tol})
+            if not max(rels) <= tol:
+                raise AssertionError(f"K6 gradients disagree at {shape} "
+                                     f"{dtype}: {rels} > {tol}")
+    return timed
+
+
+def k6_crossover(timer, dev, gen) -> dict:
+    """k6_crossover: per warped level, bf16, K6 against warp_bilinear + K1,
+    forward and forward + backward (df1, df2, dflow), at the levels of a
+    448x1024 pair and of the train step. A level fuses by default when K6's
+    forward wins there and at every larger level of both sets; the
+    smallest such level's pixel count is the measured FUSED_MIN_PIXELS.
+    Forward + backward is reported beside it: the two backwards are the
+    same ops (the warp's forward recomputed and its autograd, K2, K3), so
+    there the paths differ by K6 - K1."""
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
+    from pwcnet_tpu_torch.ops.warp import warp_bilinear
+    from pwcnet_tpu_torch.ops.warp_corr import FUSED_MIN_PIXELS
+    dtype = torch.bfloat16
+    rows = []
+    for shape in K6_MAIN + K6_TRAIN:
+        ins = [torch.randn(shape, device=dev, generator=gen).to(dtype),
+               torch.randn(shape, device=dev, generator=gen).to(dtype),
+               k6_flow(shape, "normal4", dev, gen)]
+        g = torch.randn(shape[:3] + (81,), device=dev,
+                        generator=gen).to(dtype)
+        a = [t.clone().requires_grad_() for t in ins]
+        with torch.inference_mode():
+            fused_fwd = timer(lambda: wk.warp_corr_cuda(*ins))
+            comp_fwd = timer(lambda: ck.cost_volume_cuda(
+                ins[0], warp_bilinear(ins[1], ins[2])))
+        fused_both = timer(lambda: torch.autograd.grad(
+            wk.warp_corr_fn(*a), a, g), inner=2)
+        comp_both = timer(lambda: torch.autograd.grad(ck.cost_volume_fn(
+            a[0], warp_bilinear(a[1], a[2])), a, g), inner=2)
+        row = {"shape": shape, "pixels": shape[1] * shape[2],
+               "fused_fwd_ms": fused_fwd, "composed_fwd_ms": comp_fwd,
+               "fused_fwd_bwd_ms": fused_both,
+               "composed_fwd_bwd_ms": comp_both,
+               "fused_wins": fused_fwd < comp_fwd,
+               "fused_wins_fwd_bwd": fused_both < comp_both}
+        rows.append(row)
+    wins = {}
+    for r in rows:
+        wins[r["pixels"]] = wins.get(r["pixels"], True) and r["fused_wins"]
+    measured = 1 << 30  # above every level: K6 wins nowhere
+    for px in sorted(wins, reverse=True):
+        if not wins[px]:
+            break
+        measured = px
+    out = {"phase": "k6_crossover", "dtype": "bfloat16", "rows": rows,
+           "fused_min_pixels_measured": measured,
+           "fused_min_pixels_default": FUSED_MIN_PIXELS,
+           "default_agrees": all(
+               (px >= FUSED_MIN_PIXELS) == (px >= measured) for px in wins)}
+    emit(out)
+    return out
+
+
+def fused_forward(dev, base, timer, smi) -> dict:
+    """forward_fused_bf16: PWCNet(corr_backend="fused", fused_min_pixels=0)
+    at 448x1024, batch 1: launches, finite flows, times; then the f32
+    fused forward on the card against the CPU per level."""
+    from pwcnet_tpu_torch import PWCNet
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
+    from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
+    im1 = torch.from_numpy(base)[None].to(dev)
+    im2 = torch.from_numpy(np.roll(base, (2, 5), (0, 1)))[None].to(dev)
+    model = PWCNet(dtype=torch.bfloat16, corr_backend="fused",
+                   fused_min_pixels=0,
+                   generator=torch.Generator().manual_seed(0)).eval()
+    with torch.inference_mode():
+        model(im1, im2)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches(ck, sk, wk)
+        flows = model(im1, im2)
+        torch.cuda.synchronize()
+        launches = {k: v for m in (ck, sk, wk) for k, v in m.LAUNCHES.items()
+                    if v}
+        finite = all(bool(torch.isfinite(f).all()) for f in flows)
+        shapes = [tuple(f.shape) for f in flows]
+        wall = wall_ms(lambda: model(im1, im2))
+        dev_ms = timer(lambda: model(im1, im2), reps=20, inner=1)
+        busy, n_launch, top = profile_kernels(lambda: model(im1, im2))
+    emit({"phase": "forward_fused_bf16", "hw": [448, 1024],
+          "flow_shapes": shapes, "finite": finite, "launches": launches,
+          "ms_per_frame_batch1_wall": wall,
+          "ms_per_frame_batch1_device": dev_ms,
+          "device_busy_ms_per_frame": busy,
+          "idle_share_of_wall": 1 - busy / wall,
+          "kernel_launches_per_frame": n_launch, "top": top,
+          "nvidia_smi": smi})
+    if not finite or shapes[-1] != (1, 112, 256, 2):
+        raise AssertionError(f"bad fused flows: finite={finite} "
+                             f"shapes={shapes}")
+    if launches != FUSED_FWD_LAUNCHES:
+        raise AssertionError(f"expected {FUSED_FWD_LAUNCHES} launches per "
+                             f"fused forward, got {launches}")
+
+    cpu_model = PWCNet(corr_backend="fused", fused_min_pixels=0,
+                       device="cpu").eval()
+    card_model = PWCNet(corr_backend="fused", fused_min_pixels=0,
+                        device=dev).eval()
+    card_model.load_state_dict(cpu_model.state_dict())
+    a = torch.from_numpy(base[:384, :448])[None]
+    b = torch.from_numpy(np.roll(base, (2, 5), (0, 1))[:384, :448])[None]
+    inter_cpu, inter_card = {}, {}
+    with torch.inference_mode():
+        f_cpu = cpu_model(a, b, intermediates=inter_cpu)
+        f_card = card_model(a.to(dev), b.to(dev), intermediates=inter_card)
+    torch.cuda.synchronize()
+    per_level = {key: [rel_err(g.cpu(), w)[1] for g, w in zip(got, want)]
+                 for key, got, want in (
+                     ("pyramid", inter_card["pyramid"], inter_cpu["pyramid"]),
+                     ("corr", inter_card["corr"], inter_cpu["corr"]),
+                     ("flows", f_card, f_cpu))}
+    worst = max(max(v) for v in per_level.values())
+    emit({"phase": "forward_fused_f32_card_vs_cpu", "hw": [384, 448],
+          "rel_err": per_level, "tol": FWD_TOL})
+    if not worst <= FWD_TOL:
+        raise AssertionError(f"fused card and CPU forwards disagree: {worst}")
+    return launches
+
+
+def fused_train(dev, timer, smi) -> dict:
+    """train_fused_steps: make_train_step on synthetic-proof batches (bf16,
+    8 x 384x448) with PWCNet(corr_backend="fused", fused_min_pixels=0):
+    launches per step, finite losses, ms per step and pairs/s."""
+    from pwcnet_tpu_torch import PWCNet
+    from pwcnet_tpu_torch.config import PRESETS
+    from pwcnet_tpu_torch.data.synthetic import make_device_batcher
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
+    from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
+    from pwcnet_tpu_torch.train.schedule import optimizer_from_config
+    from pwcnet_tpu_torch.train.state import TrainState
+    from pwcnet_tpu_torch.train.step import make_train_step
+    cfg = PRESETS["synthetic-proof"]
+    model = PWCNet(dtype=torch.bfloat16, corr_backend="fused",
+                   fused_min_pixels=0, device=dev,
+                   generator=torch.Generator().manual_seed(cfg.train.seed))
+    opt, sched = optimizer_from_config(model.parameters(), cfg.train)
+    state = TrainState.create(model, opt, sched, seed=1)
+    step_fn = make_train_step(model, opt, sched)
+    batcher = make_device_batcher(cfg.train.global_batch,
+                                  cfg.data.augment.crop_hw,
+                                  seed=cfg.train.seed, device=dev)
+    batches = [batcher(i) for i in range(FUSED_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    reset_launches(ck, sk, wk)
+    losses = []
+    for batch in batches:
+        state, m = step_fn(state, batch)
+        losses.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    per_step = {k: v / FUSED_TRAIN_STEPS for m in (ck, sk, wk)
+                for k, v in m.LAUNCHES.items() if v}
+    batch = batches[0]
+    step_wall = wall_ms(lambda: step_fn(state, batch), reps=10)
+    step_dev = timer(lambda: step_fn(state, batch), reps=10, inner=1)
+    busy, n_launch, top = profile_kernels(lambda: step_fn(state, batch))
+    finite = all(np.isfinite(list(m.values())).all() for m in losses)
+    emit({"phase": "train_fused_steps", "dtype": "bfloat16",
+          "batch": [cfg.train.global_batch, *cfg.data.augment.crop_hw],
+          "steps": losses, "finite": finite, "launches_per_step": per_step,
+          "ms_per_step_wall": step_wall, "ms_per_step_device": step_dev,
+          "pairs_per_s_wall": cfg.train.global_batch * 1e3 / step_wall,
+          "device_busy_ms_per_step": busy,
+          "idle_share_of_wall": 1 - busy / step_wall,
+          "kernel_launches_per_step": n_launch, "top": top,
+          "nvidia_smi": smi})
+    if not finite:
+        raise AssertionError(f"fused train steps not finite: {losses}")
+    if per_step != FUSED_TRAIN_LAUNCHES:
+        raise AssertionError(f"expected {FUSED_TRAIN_LAUNCHES} launches per "
+                             f"fused train step, got {per_step}")
+    return per_step
+
+
+def cli_phase(out_dir: str) -> None:
+    """cli: the command line in subprocesses, on the card: predict on the
+    repo's parity pair (.flo and --vis PNG), eval of the fused config on 16
+    synthetic val samples, and a train whose 10 steps cross eval_interval
+    twice (val metrics and flow images written)."""
+    import shutil
+    from pwcnet_tpu_torch.io import read_flo, read_png
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("PWCNET_PLATFORM", None)
+
+    def run(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "pwcnet_tpu_torch.cli",
+                               *args], cwd=root, env=env, capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {args[0]} failed ({proc.returncode}):"
+                                 f"\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        return (json.loads(proc.stdout.strip().splitlines()[-1]),
+                time.perf_counter() - t0)
+
+    fixtures = os.path.join(root, "tests", "fixtures", "parity")
+    flo = os.path.join(out_dir, "cli_predict.flo")
+    vis = os.path.join(out_dir, "cli_predict.png")
+    pred, pred_s = run("predict", "--im1", os.path.join(fixtures, "im1.png"),
+                       "--im2", os.path.join(fixtures, "im2.png"),
+                       "--out", flo, "--vis", vis)
+    flow, image = read_flo(flo), read_png(vis)
+    pred_ok = (flow.shape == (128, 160, 2) and bool(np.isfinite(flow).all())
+               and image.shape == (128, 160, 3))
+
+    ev, ev_s = run("eval", "--preset", "synthetic-proof",
+                   "model.corr_backend=fused", "train.eval_limit=16")
+    ev_ok = ev["num_samples"] == 16 and bool(np.isfinite(ev["epe"]))
+
+    log_dir = os.path.join(RUN_DIR, "cli_train")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    final, train_s = run("train", "--preset", "synthetic-proof",
+                         "--max-steps", "10", "train.eval_interval=5",
+                         "train.eval_limit=16", "train.summary_interval=5",
+                         f"train.log_dir={log_dir}")
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    val_steps = [r["step"] for r in recs if "val_epe" in r]
+    images = sorted(os.listdir(os.path.join(log_dir, "images")))
+    shutil.copy(os.path.join(log_dir, "metrics.jsonl"),
+                os.path.join(out_dir, "cli_train_metrics.jsonl"))
+    shutil.rmtree(log_dir)
+    train_ok = (val_steps == [5, 10] and np.isfinite(final["val_epe"])
+                and final["step"] == 10 and len(images) == 6)
+    emit({"phase": "cli", "predict": pred, "predict_ok": pred_ok,
+          "predict_s": pred_s, "eval": ev, "eval_ok": ev_ok, "eval_s": ev_s,
+          "train_final": final, "train_val_steps": val_steps,
+          "train_images": images, "train_ok": train_ok, "train_s": train_s})
+    if not (pred_ok and ev_ok and train_ok):
+        raise AssertionError("the command line's predict, eval or train "
+                             "gave a wrong result")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -574,7 +937,7 @@ def main() -> int:
     from pwcnet_tpu_torch.io import read_flo, write_flo
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume_ref
     from pwcnet_tpu_torch.ops.kernels import (build, cost_volume_kernel,
-                                              stem_kernel)
+                                              stem_kernel, warp_corr_kernel)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -664,6 +1027,11 @@ def main() -> int:
     k5_main = check_stem_bwd(timer, dev, gen)
     train_shape = time_train_shapes(timer, dev, gen)
 
+    # -- 3c. K6 against warp_corr_ref, its gradients, and the crossover
+    # against warp + K1 per level ------------------------------------------
+    k6_timed = check_k6(timer, dev, gen)
+    k6_crossover(timer, dev, gen)
+
     # -- 4. The whole forward ----------------------------------------------
     rng = np.random.default_rng(0)
     base = rng.random((448, 1024, 3), np.float32)
@@ -674,10 +1042,11 @@ def main() -> int:
     with torch.inference_mode():
         model(im1, im2)  # warm-up
         torch.cuda.synchronize()
-        reset_launches(cost_volume_kernel, stem_kernel)
+        reset_launches(cost_volume_kernel, stem_kernel, warp_corr_kernel)
         flows = model(im1, im2)
         torch.cuda.synchronize()
-        launches = {k: v for m in (cost_volume_kernel, stem_kernel)
+        launches = {k: v for m in (cost_volume_kernel, stem_kernel,
+                                   warp_corr_kernel)
                     for k, v in m.LAUNCHES.items() if v}
     shapes = [tuple(f.shape) for f in flows]
     finite = all(bool(torch.isfinite(f).all()) for f in flows)
@@ -725,6 +1094,9 @@ def main() -> int:
     if not worst <= FWD_TOL:
         raise AssertionError(f"card and CPU forwards disagree: {worst}")
 
+    # -- 4b. The fused forward (K6 at every warped level) --------------------
+    fused_forward(dev, base, timer, smi)
+
     # -- 5. Times -------------------------------------------------------------
     with torch.inference_mode():
         b1_wall = wall_ms(lambda: model(im1, im2))
@@ -745,14 +1117,18 @@ def main() -> int:
 
     # -- 5b. The trainer ------------------------------------------------
     train_launches = train_phases(out_dir, dev, smi, timer)
+    fused_launches = fused_train(dev, timer, smi)
+
+    # -- 5c. The command line -----------------------------------------------
+    cli_phase(out_dir)
 
     # -- 6. Kernels: each at the train step's shapes (bf16), with its
-    # launches per train step ----------------------------------------------
-    def entry(name, source, replaces, rows):
+    # launches per train step (K6: per fused train step) --------------------
+    def entry(name, source, replaces, rows, launches=train_launches):
         nbytes = sum(r["bytes_ms"] for r in rows)
         ops = sum(r["ops_ms"] for r in rows)
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": int(train_launches[name]),
+                "replaces": replaces, "launches": int(launches[name]),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": sum(r["ms"] for r in rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -769,10 +1145,15 @@ def main() -> int:
               list(corr_bwd_main["k3_check"].values())),
         entry("stem_fwd", sk.SOURCE, sk.REPLACES, train_shape["stem_fwd"]),
         entry("stem_bwd", sk.SOURCE, sk.BWD_REPLACES, [k5_main]),
+        entry("warp_corr_fwd", warp_corr_kernel.SOURCE,
+              warp_corr_kernel.REPLACES, list(k6_timed["train"].values()),
+              fused_launches),
     ]
     emit({"phase": "inference_kernels", "corr_fwd_ms_448x1024": sum(
         r["ms"] for r in k1_main.values()), "stem_fwd_ms_448x1024":
-        k4_main["ms"], "launches_per_forward": launches})
+        k4_main["ms"], "warp_corr_fwd_ms_448x1024": sum(
+            r["ms"] for r in k6_timed["main"].values()),
+        "launches_per_forward": launches})
     line = {"kernels": kernels}
     RESULTS.append(line)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

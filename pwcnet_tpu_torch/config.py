@@ -3,20 +3,22 @@
 cannot be imported here) and its synthetic presets.
 
 Field names and defaults are the JAX package's, so a config reads the same
-in both. ``apply_overrides`` (the CLI's ``section.field=value``) comes with
-the CLI (ROADMAP A3).
+in both. ``apply_overrides`` applies the CLI's ``section.field=value``
+overrides with the JAX package's coercions.
 """
 
 from __future__ import annotations
 
+import ast
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Any, List, Optional, Tuple
 
 from pwcnet_tpu_torch.train.schedule import S_FINE, S_LONG, ScheduleConfig
 
 __all__ = ["AugmentConfig", "Config", "DataConfig", "ModelConfig",
            "ParallelConfig", "PRESETS", "S_FINE", "S_LONG", "ScheduleConfig",
-           "TrainConfig"]
+           "TrainConfig", "apply_overrides"]
 
 
 @dataclass(frozen=True)
@@ -140,3 +142,51 @@ PRESETS = {
             log_dir="runs/synthetic-hard"),
     ),
 }
+
+
+def apply_overrides(cfg: Config, overrides: List[str]) -> Config:
+    """Apply ``section.field=value`` overrides (nested through dots)."""
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override must be key=value, got {ov!r}")
+        key, val = ov.split("=", 1)
+        cfg = _set_nested(cfg, key.split("."), val)
+    return cfg
+
+
+def _coerce(current, val: str):
+    """``val`` as the type of the field's ``current`` value."""
+    if isinstance(current, bool):
+        return val.lower() in ("1", "true", "yes")
+    if val.lower() in ("none", "null"):
+        return None
+    if isinstance(current, str):
+        return val
+    if current is None:
+        # No type to go by: lowercase booleans first (literal_eval refuses
+        # them, and the string "false" would be truthy), then literals,
+        # else the string itself (paths).
+        if val.lower() in ("true", "yes"):
+            return True
+        if val.lower() in ("false", "no"):
+            return False
+        try:
+            return ast.literal_eval(val)
+        except (ValueError, SyntaxError):
+            return val
+    try:
+        return type(current)(ast.literal_eval(val))
+    except (ValueError, SyntaxError):
+        return type(current)(val)
+
+
+def _set_nested(obj, parts: List[str], val: str):
+    name = parts[0]
+    if not hasattr(obj, name):
+        raise AttributeError(
+            f"{type(obj).__name__} has no field {name!r}; have "
+            f"{[f.name for f in dataclasses.fields(obj)]}")
+    cur = getattr(obj, name)
+    new = _coerce(cur, val) if len(parts) == 1 else _set_nested(
+        cur, parts[1:], val)
+    return dataclasses.replace(obj, **{name: new})

@@ -12,15 +12,19 @@ marked invalid).
 ``_host_params`` draws a sample's parameters with numpy and ``_render``
 evaluates them with torch, on whatever device the parameters are on. The
 constants, the parameter law and the formulas are the JAX package's.
+``SyntheticFlow`` is the host dataset (the eval split); training batches
+come from ``make_device_batcher``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from pwcnet_tpu_torch.data.base import FlowDataset, register_dataset
 
 N_WAVES = 24
 WAVELEN_RANGE = (8.0, 128.0)   # px, log-uniform
@@ -201,6 +205,52 @@ def _scale_pos(p: Dict[str, np.ndarray],
 def to_device(p: Dict[str, np.ndarray], device) -> Params:
     return {k: torch.as_tensor(np.asarray(v), device=device)
             for k, v in p.items()}
+
+
+@register_dataset("synthetic")
+class SyntheticFlow(FlowDataset):
+    """Procedural pairs with exact dense ground truth, rendered on the CPU.
+
+    Sample ``idx`` of a split is deterministic in ``(seed, stream, idx)``
+    (stream 1 for "val", 0 otherwise) and equals the JAX package's sample
+    of the same index: the same numpy draws, rendered by ``_render``.
+    ``root`` is accepted and ignored, as the file datasets take one. The
+    val split keeps rendered samples, read-only, up to ``cache_bytes``.
+    """
+
+    def __init__(self, root: str = "-", split: str = "train",
+                 hw: Tuple[int, int] = (384, 448), length: int = 4000,
+                 val_length: int = 256, seed: int = 17,
+                 regime: str = "smooth", cache_bytes: int = 4 << 30):
+        self.hw = tuple(hw)
+        self.split = split
+        self.seed = seed
+        self.regime = regime
+        self._len = val_length if split == "val" else length
+        self._cache: Optional[dict] = {} if split == "val" else None
+        self._cache_bytes_left = int(cache_bytes)
+
+    def __len__(self) -> int:
+        return self._len
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        if not 0 <= idx < self._len:
+            raise IndexError(idx)
+        if self._cache is not None and idx in self._cache:
+            return dict(self._cache[idx])
+        stream = 1 if self.split == "val" else 0
+        rng = np.random.default_rng((self.seed, stream, idx))
+        p = _scale_pos(_host_params(rng, self.regime), self.hw)
+        with torch.no_grad():
+            s = _render(self.hw, to_device(p, "cpu"))
+        out = {k: v.numpy() for k, v in s.items()}
+        nbytes = sum(v.nbytes for v in out.values())
+        if self._cache is not None and self._cache_bytes_left >= nbytes:
+            for v in out.values():  # shared with every caller: freeze
+                v.flags.writeable = False
+            self._cache[idx] = out
+            self._cache_bytes_left -= nbytes
+        return dict(out)
 
 
 def make_device_batcher(global_batch: int, hw: Tuple[int, int],

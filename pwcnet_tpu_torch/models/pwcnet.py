@@ -24,6 +24,7 @@ from pwcnet_tpu_torch.models.layers import (ConvBlock, ConvStack, Conv3x3,
 from pwcnet_tpu_torch.ops.cost_volume import cost_volume
 from pwcnet_tpu_torch.ops.resize import resize_bilinear
 from pwcnet_tpu_torch.ops.warp import warp_bilinear
+from pwcnet_tpu_torch.ops.warp_corr import fused_is_profitable, warp_corr
 
 # Level l (1-indexed, 1/2^l resolution) -> channels.
 DEFAULT_PYRAMID_CHANNELS: Tuple[int, ...] = (16, 32, 64, 96, 128, 196, 224)
@@ -133,9 +134,12 @@ class PWCNet(nn.Module):
 
     Options follow the JAX ``PWCNet``. The correlation and the stem are the
     CUDA kernels on the GPU (differentiable: their backward is a kernel too)
-    and their plain versions on the CPU (``corr_backend="pallas"``,
-    the only value ported). ``device=None`` means the GPU, and raises when
-    there is none. Weights are drawn from ``generator`` (seed 0 when None)
+    and their plain versions on the CPU. ``corr_backend="fused"`` runs the
+    fused warp + correlation (K6) at the warped levels of at least
+    ``fused_min_pixels`` pixels (None: the port's ``FUSED_MIN_PIXELS``; 0:
+    every warped level), and warp + correlation elsewhere, as the JAX model
+    dispatches. ``device=None`` means the GPU, and raises when there is
+    none. Weights are drawn from ``generator`` (seed 0 when None)
     with the flax defaults' law.
     """
 
@@ -143,7 +147,9 @@ class PWCNet(nn.Module):
                  search_range: int = 4, residual: bool = True,
                  use_norm: bool = False, input_norm: bool = False,
                  input_center: bool = False, corr_backend: str = "pallas",
-                 stem_backend: str = "auto", flow_scale: float = 20.0,
+                 stem_backend: str = "auto",
+                 fused_min_pixels: Optional[int] = None,
+                 flow_scale: float = 20.0,
                  resize_mode: str = "half_pixel", spatial_axis=None,
                  dtype: torch.dtype = torch.float32,
                  device: Optional[Union[str, torch.device]] = None,
@@ -155,10 +161,10 @@ class PWCNet(nn.Module):
         if not 0 <= output_level < num_levels:
             raise ValueError(f"output_level must be in 0..{num_levels - 1}, "
                              f"got {output_level}")
-        if corr_backend == "fused" or spatial_axis is not None:
-            raise NotImplementedError(
-                "corr_backend='fused' and spatial_axis are not ported yet")
-        if corr_backend != "pallas":
+        if spatial_axis is not None:
+            raise NotImplementedError("spatial_axis is not ported yet "
+                                      "(ROADMAP A7)")
+        if corr_backend not in ("pallas", "fused"):
             raise ValueError(f"unknown corr_backend {corr_backend!r}")
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
@@ -166,6 +172,8 @@ class PWCNet(nn.Module):
         self.search_range, self.residual = search_range, residual
         self.input_norm, self.input_center = input_norm, input_center
         self.flow_scale, self.resize_mode = flow_scale, resize_mode
+        self.corr_backend = corr_backend
+        self.fused_min_pixels = fused_min_pixels
         self.dtype = dtype
 
         chans = DEFAULT_PYRAMID_CHANNELS[:num_levels]
@@ -224,6 +232,7 @@ class PWCNet(nn.Module):
 
         flows: List[torch.Tensor] = []
         flow = None
+        d = self.search_range
         for i in range(self.output_level + 1):
             level = self.num_levels - i
             f1, f2 = pyr[i][:n], pyr[i][n:]
@@ -231,14 +240,17 @@ class PWCNet(nn.Module):
             if flow is None:
                 up_flow = f1h.new_zeros(f1h.shape[:3] + (2,),
                                         dtype=torch.float32)
-                warped = f2h
+                corr = cost_volume(f1h, f2h, max_displacement=d)
             else:
                 up_flow = resize_bilinear(flow, tuple(f1h.shape[1:3]),
                                           self.resize_mode)
-                warped = warp_bilinear(
-                    f2h, up_flow * (self.flow_scale / 2.0 ** level))
-            corr = cost_volume(f1h, warped,
-                               max_displacement=self.search_range)
+                pix = up_flow * (self.flow_scale / 2.0 ** level)
+                if self.corr_backend == "fused" and fused_is_profitable(
+                        f1h.shape[1], f1h.shape[2], self.fused_min_pixels):
+                    corr = warp_corr(f1h, f2h, pix, max_displacement=d)
+                else:
+                    corr = cost_volume(f1h, warp_bilinear(f2h, pix),
+                                       max_displacement=d)
             if intermediates is not None:
                 intermediates["corr"].append(corr)
             x = torch.cat([_nchw(leaky_relu(corr)), f1,

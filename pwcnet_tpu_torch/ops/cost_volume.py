@@ -33,6 +33,22 @@ def cost_volume_ref(f1: torch.Tensor, f2: torch.Tensor,
     return torch.stack(outs, -1).to(f1.dtype)
 
 
+def cost_volume_bwd_ref(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
+                        max_displacement: int = 4, need_f1: bool = True,
+                        need_f2: bool = True):
+    """Plain version of K2 and K3, with ``cost_volume_bwd_cuda``'s
+    signature: (df1, df2) from autograd through ``cost_volume_ref``, None
+    for a gradient not asked for."""
+    with torch.enable_grad():
+        a = f1.detach().requires_grad_(need_f1)
+        b = f2.detach().requires_grad_(need_f2)
+        wrt = [t for t in (a, b) if t.requires_grad]
+        grads = list(torch.autograd.grad(
+            cost_volume_ref(a, b, max_displacement), wrt, g)) if wrt else []
+    return (grads.pop(0) if need_f1 else None,
+            grads.pop(0) if need_f2 else None)
+
+
 def cost_volume(f1: torch.Tensor, f2: torch.Tensor, *,
                 max_displacement: int = 4) -> torch.Tensor:
     """The plain version on CPU tensors, the CUDA kernels on CUDA tensors."""

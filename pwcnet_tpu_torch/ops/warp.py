@@ -4,6 +4,14 @@ The JAX package lowers the warp to an XLA gather, not a Pallas kernel, so the
 port keeps it in plain PyTorch: the four-corner gather of
 ``warp_bilinear_ref`` with zero padding, per-corner in-bounds masks and the
 reference's coverage mask (a warped all-ones tensor, zeroed below 0.9999).
+
+The corners are gathered from an f32 copy of the features: the same values
+in the forward, and in the backward the scatter of the gradient into the
+features accumulates in f32 and rounds once to their dtype. A bf16 scatter
+rounds at every atomic add, in an order that changes from run to run: with
+it, K6's bf16 backward and the plain one (which share this warp) differed
+in df2 by up to 7.3e-3 of its max, with the f32 gather by at most 1.2e-3
+(``chip_smoke.py``, ``k6_grad_check``; NVIDIA H100 80GB HBM3, 700 W).
 """
 
 from __future__ import annotations
@@ -33,14 +41,14 @@ def warp_bilinear(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     y0 = torch.floor(ys)
     wx = (xs - x0).unsqueeze(-1)
     wy = (ys - y0).unsqueeze(-1)
-    flat = feat.reshape(n, h * w, c)
+    flat = feat.reshape(n, h * w, c).float()
 
     def tap(yi, xi):
         inb = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
         idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
         g = torch.gather(flat, 1, idx.reshape(n, h * w, 1).expand(-1, -1, c))
         m = inb.float().unsqueeze(-1)
-        return g.reshape(n, h, w, c).float() * m, m
+        return g.reshape(n, h, w, c) * m, m
 
     g00, m00 = tap(y0, x0)
     g01, m01 = tap(y0, x0 + 1)

@@ -3,7 +3,9 @@ ported path: PWC-Net on device-generated synthetic batches, one device.
 
 ``train(cfg, max_steps, device=None)`` builds the model and optimizer,
 resumes from the latest checkpoint under ``<log_dir>/ckpt``, runs the steps,
-writes metrics every ``summary_interval`` steps (and at the last), and
+writes metrics every ``summary_interval`` steps (and at the last), evaluates
+on the synthetic val split every ``eval_interval`` steps (``val_epe``,
+``val_fl_all``, ``val_epe_s*``, and flow images of one val sample), and
 checkpoints every ``checkpoint_interval`` steps and at the end. It runs on
 the GPU unless ``device="cpu"``. What the config asks for and the port does
 not have yet raises ``NotImplementedError`` naming its ROADMAP item.
@@ -11,19 +13,25 @@ not have yet raises ``NotImplementedError`` naming its ROADMAP item.
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from pwcnet_tpu_torch.config import Config
+from pwcnet_tpu_torch.data.base import get_dataset
 from pwcnet_tpu_torch.data.synthetic import make_device_batcher
 from pwcnet_tpu_torch.models.pwcnet import PWCNet, _resolve_device
 from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
+from pwcnet_tpu_torch.train.evaluate import evaluate_dataset, predict_flow
 from pwcnet_tpu_torch.train.metrics import MetricsWriter
 from pwcnet_tpu_torch.train.schedule import lr_at, optimizer_from_config
 from pwcnet_tpu_torch.train.state import TrainState
 from pwcnet_tpu_torch.train.step import make_train_step
+
+_log = logging.getLogger(__name__)
 
 
 def build_model(cfg: Config, device=None) -> PWCNet:
@@ -67,13 +75,29 @@ def _check_ported(cfg: Config, dev: torch.device) -> None:
                                   "(ROADMAP A5)")
 
 
-def _check_eval(cfg: Config, start: int, total: int) -> None:
-    every = cfg.train.eval_interval
-    if every > 0 and total // every > start // every:
-        raise NotImplementedError(
-            f"steps {start + 1}..{total} include a periodic eval (every "
-            f"{every}); the eval loop and evaluate_dataset are not ported "
-            "yet (ROADMAP A2)")
+def _evaluate(cfg: Config, model: PWCNet, val_ds, writer: MetricsWriter,
+              step: int, final: dict, failures: list) -> None:
+    """The periodic eval: val metrics into the log and ``final``, then flow
+    images of val sample 0 (a failure there is logged once per run, counted
+    in ``failures``, and training goes on, as in the JAX trainer)."""
+    ev = evaluate_dataset(model, val_ds, batch=cfg.data.eval_batch,
+                          limit=cfg.train.eval_limit)
+    writer.scalars(step, {"val_epe": ev["epe"], "val_fl_all": ev["fl_all"],
+                          **{f"val_{k}": v for k, v in ev.items()
+                             if k.startswith("epe_s")}})
+    final["val_epe"], final["val_fl_all"] = ev["epe"], ev["fl_all"]
+    try:
+        s0 = val_ds[0]
+        pred = predict_flow(model, s0["im1"], s0["im2"])
+        mm = float(np.abs(s0["flow"]).max()) or None
+        writer.flow_image(step, "val/flow_pred", pred, max_mag=mm)
+        writer.flow_image(step, "val/flow_gt", s0["flow"], max_mag=mm)
+        writer.image(step, "val/im1", (s0["im1"] * 255).astype(np.uint8))
+    except Exception:
+        if not failures:
+            _log.exception("eval image summary failed (logged once; further "
+                           "failures are suppressed)")
+        failures.append(step)
 
 
 def train(cfg: Config, max_steps: Optional[int] = None,
@@ -97,7 +121,6 @@ def train(cfg: Config, max_steps: Optional[int] = None,
     total = cfg.train.schedule.total_steps
     if max_steps is not None:
         total = min(total, start + max_steps)
-    _check_eval(cfg, start, total)
 
     step_fn = make_train_step(model, optimizer, scheduler,
                               loss_kind=cfg.train.loss,
@@ -108,8 +131,13 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                                   seed=cfg.train.seed,
                                   regime=cfg.data.synthetic_regime,
                                   device=dev)
+    val_ds = get_dataset(cfg.data.name, cfg.data.root, split="val",
+                         hw=cfg.data.sample_hw,
+                         regime=cfg.data.synthetic_regime,
+                         val_length=cfg.data.synthetic_val_length)
     writer = MetricsWriter(cfg.train.log_dir)
     final: dict = {}
+    summary_failures: list = []
     t_last, pairs_since = time.perf_counter(), 0
     try:
         while state.step < total:
@@ -125,6 +153,10 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                 writer.scalars(step, metrics)
                 final = metrics
                 t_last, pairs_since = time.perf_counter(), 0
+            every = cfg.train.eval_interval
+            if every > 0 and step % every == 0:
+                _evaluate(cfg, model, val_ds, writer, step, final,
+                          summary_failures)
             if step % cfg.train.checkpoint_interval == 0 or step == total:
                 ckpt.save(state)
     finally:

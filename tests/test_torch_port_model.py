@@ -110,12 +110,32 @@ def test_forward_rejects_non_divisible_size():
         model(im, im)
 
 
-@pytest.mark.parametrize("kwargs", [dict(corr_backend="fused"),
-                                    dict(spatial_axis="spatial"),
+@pytest.mark.parametrize("kwargs", [dict(spatial_axis="spatial"),
                                     dict(use_norm=True)])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         PWCNet(device="cpu", **kwargs)
+
+
+def test_fused_backend_constructs_and_dispatches(monkeypatch):
+    """corr_backend="fused" (ported): warp_corr at every warped level when
+    fused_min_pixels=0, the same flows as the composed path on the CPU.
+    tests/test_torch_port_fused.py holds it against the JAX model."""
+    import pwcnet_tpu_torch.models.pwcnet as pwcnet_mod
+    calls = []
+    real = pwcnet_mod.warp_corr
+    monkeypatch.setattr(pwcnet_mod, "warp_corr", lambda *a, **k: (
+        calls.append(a[0].shape[1:3]), real(*a, **k))[1])
+    fused = PWCNet(device="cpu", corr_backend="fused", fused_min_pixels=0)
+    assert fused.corr_backend == "fused"
+    im = torch.from_numpy(np.random.default_rng(3).random((1, 64, 64, 3),
+                                                          np.float32))
+    with torch.no_grad():
+        got = fused(im, im.flip(2))
+        want = PWCNet(device="cpu")(im, im.flip(2))
+    assert len(calls) == 4
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_flow_chain_stays_f32_in_bf16_model():

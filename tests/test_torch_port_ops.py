@@ -23,7 +23,7 @@ from pwcnet_tpu_torch.ops import (conv_same, cost_volume, cost_volume_ref,
                                   downsample_bilinear, resize_bilinear,
                                   warp_bilinear)
 from pwcnet_tpu_torch.ops.kernels import (build, cost_volume_kernel,
-                                          stem_kernel)
+                                          stem_kernel, warp_corr_kernel)
 
 
 def _t(a):
@@ -388,9 +388,10 @@ def test_resize_half_pixel_refuses_downsampling():
 # ---------------------------------------------------------------------------
 
 def test_build_knows_both_kernel_sources():
-    assert build.kernel_names() == ["cost_volume", "cost_volume_bwd", "stem"]
+    assert build.kernel_names() == ["cost_volume", "cost_volume_bwd", "stem",
+                                    "warp_corr"]
     src = {cost_volume_kernel.SOURCE, cost_volume_kernel.BWD_SOURCE,
-           stem_kernel.SOURCE}
+           stem_kernel.SOURCE, warp_corr_kernel.SOURCE}
     assert src == {f"pwcnet_tpu_torch/csrc/{n}.cu"
                    for n in build.kernel_names()}
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)

@@ -9,6 +9,7 @@ pins equal to the Pallas kernel, gradients included).
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -417,7 +418,6 @@ def test_checkpoint_manager_keeps_the_newest(tmp_path):
     dict(train=dict(debug_nans=True)),
     dict(train=dict(profile_dir="prof")),
     dict(train=dict(loss="sequence")),
-    dict(train=dict(eval_interval=2)),
     dict(model=dict(family="raft")),
 ])
 def test_train_raises_for_what_is_not_ported(tmp_path, change):
@@ -427,6 +427,26 @@ def test_train_raises_for_what_is_not_ported(tmp_path, change):
         for sec, kw in change.items()})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(cfg, max_steps=3, device="cpu")
+
+
+def test_train_runs_the_periodic_eval(tmp_path):
+    """eval_interval inside the run: val metrics in the log and in the
+    returned metrics of the last step, flow images of one val sample."""
+    cfg = _tiny_cfg(tmp_path, eval_interval=2, eval_limit=2)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, sample_hw=(64, 64), eval_batch=2))
+    final = train(cfg, max_steps=2, device="cpu")
+    assert final["step"] == 2 and np.isfinite(final["val_epe"])
+    assert 0 <= final["val_fl_all"] <= 100
+    recs = [json.loads(line) for line in
+            (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    val = [r for r in recs if "val_epe" in r]
+    assert [r["step"] for r in val] == [2]
+    assert {"val_fl_all", "val_epe_s0_10", "val_epe_s10_40",
+            "val_epe_s40plus"} <= val[0].keys()
+    images = sorted(p.name for p in (tmp_path / "images").iterdir())
+    assert images == ["val_flow_gt_2.png", "val_flow_pred_2.png",
+                      "val_im1_2.png"]
 
 
 def test_train_without_device_raises_when_there_is_no_gpu(tmp_path):
