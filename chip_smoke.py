@@ -13,7 +13,11 @@ the fused train step through the kernels, checks flows, losses, launch
 counts, a checkpoint round trip, an overfit run and f32 steps against the
 CPU, measures K6 against warp + K1 per level (the crossover behind
 ``FUSED_MIN_PIXELS``), runs the command line (``predict``, ``eval``, a
-``train`` that crosses ``eval_interval``) in subprocesses, and times the
+``train`` that crosses ``eval_interval``) in subprocesses, holds the
+spatial path's halo-row kernels K1p and K6p and the small-channel conv K7
+against their plain versions, drives ``parallel.spatial_forward`` at
+512x1024 on 1 rank in this process and on 2 and 4 ranks (``gloo``
+processes sharing the card) against the unsharded forward, and times the
 kernels, the forwards and the train steps with CUDA events. Each phase
 prints one JSON line; any failure raises and the script exits non-zero.
 Without a CUDA device it exits 1 at once. The last line is ``{"ok": true,
@@ -65,6 +69,26 @@ FUSED_FWD_LAUNCHES = {"warp_corr_fwd": 4, "corr_fwd": 1, "stem_fwd": 1}
 FUSED_TRAIN_LAUNCHES = {"warp_corr_fwd": 4, "corr_fwd": 1, "corr_bwd_f1": 5,
                         "corr_bwd_f2": 5, "stem_fwd": 1, "stem_bwd": 1}
 FUSED_TRAIN_STEPS = 3
+# The spatial path: a 512x1024 pair (436x1024 Sintel padded for 2 and 4
+# shards). K1p at the shard-local shapes of each level (6..2) under S = 2 and
+# S = 4, with d = 4 real halo rows; K6p at the warped levels (5..2); ragged
+# shapes with (row0, h_global) placing the shard.
+SPATIAL_HW = (512, 1024)
+K1P = {s: [(1, 512 // 2 ** lv // s, 1024 // 2 ** lv, c)
+           for lv, c in ((6, 196), (5, 128), (4, 96), (3, 64), (2, 32))]
+       for s in (2, 4)}
+K1P_RAGGED = [(2, 5, 13, 5), (1, 3, 33, 196), (3, 9, 70, 32)]
+K6P = {s: shapes[1:] for s, shapes in K1P.items()}
+K6P_RAGGED = [((2, 5, 13, 5), 5, 15), ((1, 3, 33, 196), 3, 12),
+              ((3, 9, 70, 32), 0, 18)]  # (shape, row0, h_global)
+# Flows for K6p: K6_FLOWS' kinds and "beyond": a quarter of the pixels move
+# +-(halo + 3) rows, past the exchanged rows (the halo-bound clamp).
+K6P_FLOWS = ("normal1", "normal4", "beyond", "integer_and_far")
+# K7 at the stem chain of a 448x1024 pair (both frames): (input shape, Co,
+# stride), through conv2d_folded as a chain of folded layouts.
+K7_CHAIN = [((2, 448, 1024, 3), 16, 2), ((2, 224, 512, 16), 16, 1),
+            ((2, 224, 512, 16), 32, 2), ((2, 112, 256, 32), 32, 1)]
+SPATIAL_REPS = 10  # timed spatial forwards
 TRAIN_STEPS = 10   # steps of the train_steps phase
 OVERFIT_STEPS = 30
 TRAIN_LAUNCHES = {"corr_fwd": 5, "corr_bwd_f1": 5, "corr_bwd_f2": 5,
@@ -96,6 +120,10 @@ FWD_TOL = 1e-4  # f32 forward, card kernels vs CPU plain ops, per level
 # kernels' own gradients are held to 1e-5 by k2/k3/k5_check.
 TRAIN_TOL = 1e-4
 FLOOR_FACTOR = 3.0
+# K7 against conv_ref: f32 as the correlation (sum order only); bf16: the
+# plain version rounds the conv and then the bias-add to bf16, the kernel
+# rounds once, so two bf16 steps (2 x 2**-8) apart at most.
+CONV_TOL = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
 
 RESULTS: list = []
 
@@ -214,6 +242,41 @@ def stem_cost(shape, dtype):
     macs = n * (l1 * 16 * 27 + l1 * 16 * 144 + l2 * 32 * 144 + l2 * 32 * 288)
     n_w = 27 * 16 + 144 * 16 + 144 * 32 + 288 * 32 + 16 + 16 + 32 + 32
     return (n * h * w * 3 + n * l2 * 32) * s + n_w * 4, 2.0 * macs
+
+
+def corr_pre_cost(shape, dtype):
+    """K1p: read f1 and the d-row-extended f2, write the correlation."""
+    n, t, w, c = shape
+    s = torch.empty((), dtype=dtype).element_size()
+    return ((n * t * w * c + n * (t + 8) * w * c + n * t * w * 81) * s,
+            2.0 * n * t * w * 81 * c)
+
+
+def k6p_halo(t: int) -> int:
+    """The halo rows of f2 at a level of t rows (spatial_halo 16, d 4)."""
+    return max(min(16, t), 4)
+
+
+def warp_corr_pre_cost(shape, dtype):
+    """K6p: read f1, the halo-extended f2 and the f32 flow with d halo rows,
+    write the correlation; the blend of the t + 2d warped rows and the 81
+    taps of the t output rows."""
+    n, t, w, c = shape
+    s = torch.empty((), dtype=dtype).element_size()
+    te = t + 2 * k6p_halo(t)
+    return ((n * t * w * c + n * te * w * c + n * t * w * 81) * s
+            + n * (t + 8) * w * 2 * 4,
+            2.0 * n * w * c * (81 * t + 4 * (t + 8)))
+
+
+def conv_cost(shape, co, stride, dtype):
+    """K7: read x and the weights, write the output; 9 * Ci products per
+    output value."""
+    n, h, w, ci = shape
+    s = torch.empty((), dtype=dtype).element_size()
+    ho, wo = -(-h // stride), -(-w // stride)
+    return ((n * h * w * ci + n * ho * wo * co) * s + (9 * ci + 1) * co * 4,
+            2.0 * n * ho * wo * co * 9 * ci)
 
 
 def corr_bwd_cost(shape, dtype):
@@ -443,7 +506,7 @@ def train_phases(out_dir: str, dev, smi: str, timer) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = {**ck.LAUNCHES, **sk.LAUNCHES}
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
     with open(os.path.join(cfg.train.log_dir, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
     steps = [{k: r[k] for k in ("step", "loss", "train_epe", "grad_norm",
@@ -864,6 +927,319 @@ def fused_train(dev, timer, smi) -> dict:
     return per_step
 
 
+def check_k1p(timer, dev, gen) -> dict:
+    """k1p_check: K1p against cost_volume_prepadded_ref, bf16 and f32, at
+    the shard-local levels of a 512x1024 pair under S = 2 and 4 and ragged
+    shapes, f2 with d = 4 random real halo rows; timed (bf16) at S = 2."""
+    from pwcnet_tpu_torch.ops.cost_volume import cost_volume_prepadded_ref
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    timed = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape in K1P[2] + K1P[4] + K1P_RAGGED:
+                n, t, w, c = shape
+                f1 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                f2e = torch.randn((n, t + 8, w, c), device=dev,
+                                  generator=gen).to(dtype)
+                got = ck.cost_volume_prepadded_cuda(f1, f2e)
+                want = cost_volume_prepadded_ref(f1, f2e)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, want)
+                tol = TOL[("corr", dtype)]
+                row = {"phase": "k1p_check", "shape": shape,
+                       "dtype": str(dtype), "max_abs_err": err,
+                       "rel_err": rel, "tol": tol}
+                if shape in K1P[2] and dtype == torch.bfloat16:
+                    nbytes, flops = corr_pre_cost(shape, dtype)
+                    b, tb, to = bound_ms(nbytes, flops, dtype)
+                    row.update(
+                        ms=timer(lambda: ck.cost_volume_prepadded_cuda(
+                            f1, f2e)),
+                        plain_ms=timer(lambda: cost_volume_prepadded_ref(
+                            f1, f2e), inner=2),
+                        bound_ms=b, bytes_ms=tb, ops_ms=to)
+                    timed[shape] = row
+                emit(row)
+                if not rel <= tol:
+                    raise AssertionError(f"K1p disagrees at {shape} {dtype}: "
+                                         f"{rel} > {tol}")
+    return timed
+
+
+def k6p_flow(shape, kind, halo, dev, gen):
+    """Flows with d = 4 halo rows (t + 8 rows) of one of K6P_FLOWS."""
+    n, t, w, _ = shape
+    fshape = (n, t + 8, w, 2)
+    if kind != "beyond":
+        return k6_flow(fshape, kind, dev, gen)
+    flow = torch.randn(fshape, device=dev, generator=gen)
+    far = torch.rand((n, t + 8, w), device=dev, generator=gen) < 0.25
+    sign = torch.where(torch.rand((n, t + 8, w), device=dev, generator=gen)
+                       < 0.5, -1.0, 1.0)
+    flow[..., 1] = torch.where(far, sign * (halo + 3) + flow[..., 1],
+                               flow[..., 1])
+    return flow
+
+
+def check_k6p(timer, dev, gen) -> dict:
+    """k6p_check: K6p against warp_corr_prepadded_ref, bf16 and f32, at the
+    warped shard-local levels of a 512x1024 pair under S = 2 (the bottom
+    shard) and S = 4 (an interior shard) and ragged shapes, random real
+    halo rows, every flow of K6P_FLOWS (``beyond`` reaches past the halo:
+    the clamp); timed (bf16, normal4 flows) at S = 2."""
+    from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
+    from pwcnet_tpu_torch.ops.warp_corr import warp_corr_prepadded_ref
+    cases = ([(sh, sh[1], 2 * sh[1]) for sh in K6P[2]]
+             + [(sh, sh[1], 4 * sh[1]) for sh in K6P[4]] + K6P_RAGGED)
+    timed = {}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape, row0, h in cases:
+                n, t, w, c = shape
+                halo = k6p_halo(t)
+                f1 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+                f2e = torch.randn((n, t + 2 * halo, w, c), device=dev,
+                                  generator=gen).to(dtype)
+                errs = {}
+                for kind in K6P_FLOWS:
+                    flow = k6p_flow(shape, kind, halo, dev, gen)
+                    got = wk.warp_corr_prepadded_cuda(f1, f2e, flow, row0, h,
+                                                      halo)
+                    want = warp_corr_prepadded_ref(f1, f2e, flow, row0, h,
+                                                   halo)
+                    torch.cuda.synchronize()
+                    errs[kind] = rel_err(got, want)
+                tol = TOL[("corr", dtype)]
+                row = {"phase": "k6p_check", "shape": shape, "row0": row0,
+                       "h_global": h, "halo": halo, "dtype": str(dtype),
+                       "max_abs_err": max(e[0] for e in errs.values()),
+                       "rel_err": {k: e[1] for k, e in errs.items()},
+                       "tol": tol}
+                if shape in K6P[2] and dtype == torch.bfloat16:
+                    flow = k6p_flow(shape, "normal4", halo, dev, gen)
+                    nbytes, flops = warp_corr_pre_cost(shape, dtype)
+                    b, tb, to = bound_ms(nbytes, flops, dtype)
+                    row.update(
+                        ms=timer(lambda: wk.warp_corr_prepadded_cuda(
+                            f1, f2e, flow, row0, h, halo)),
+                        plain_ms=timer(lambda: warp_corr_prepadded_ref(
+                            f1, f2e, flow, row0, h, halo), inner=2),
+                        bound_ms=b, bytes_ms=tb, ops_ms=to)
+                    timed[shape] = row
+                emit(row)
+                bad = {k: e[1] for k, e in errs.items() if not e[1] <= tol}
+                if bad:
+                    raise AssertionError(f"K6p disagrees at {shape} {dtype}: "
+                                         f"{bad} > {tol}")
+    return timed
+
+
+def check_k7(timer, dev, gen) -> dict:
+    """k7_check: K7 against conv_ref at the stem chain of a 448x1024 pair,
+    bf16 and f32, with LeakyReLU 0.1; timed (bf16) beside F.conv2d + bias
+    (the library row, which leaves out the LeakyReLU and pads a stride-2
+    conv symmetrically); then the chain through conv2d_folded, whose K7
+    launches are counted."""
+    import torch.nn.functional as F
+    from pwcnet_tpu_torch.ops.conv_folded import (conv2d_folded, conv_ref,
+                                                  pick_g, unfold_w)
+    from pwcnet_tpu_torch.ops.kernels import conv_folded_kernel as fk
+    rows, params = [], []
+    for shape, co, stride in K7_CHAIN:
+        ci = shape[-1]
+        params.append((0.3 * torch.randn((3, 3, ci, co), device=dev,
+                                         generator=gen),
+                       0.1 * torch.randn((co,), device=dev, generator=gen)))
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            for (shape, co, stride), (w, b) in zip(K7_CHAIN, params):
+                x = torch.rand(shape, device=dev, generator=gen).to(dtype)
+                got = fk.conv_folded_cuda(x, w, b, stride, 0.1)
+                want = conv_ref(x, w, b, stride=stride, slope=0.1)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, want)
+                tol = CONV_TOL[dtype]
+                row = {"phase": "k7_check", "shape": shape, "co": co,
+                       "stride": stride, "dtype": str(dtype),
+                       "max_abs_err": err, "rel_err": rel, "tol": tol}
+                if dtype == torch.bfloat16:
+                    nbytes, flops = conv_cost(shape, co, stride, dtype)
+                    bd, tb, to = bound_ms(nbytes, flops, dtype)
+                    xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view
+                    wo, bo = w.permute(3, 2, 0, 1).to(dtype), b.to(dtype)
+                    row.update(
+                        ms=timer(lambda: fk.conv_folded_cuda(x, w, b, stride,
+                                                             0.1)),
+                        plain_ms=timer(lambda: conv_ref(x, w, b,
+                                                        stride=stride,
+                                                        slope=0.1)),
+                        library_ms=timer(lambda: F.conv2d(
+                            xc, wo, bo, stride=stride, padding=1)),
+                        bound_ms=bd, bytes_ms=tb, ops_ms=to)
+                    rows.append(row)
+                emit(row)
+                if not rel <= tol:
+                    raise AssertionError(f"K7 disagrees at {shape} {dtype}: "
+                                         f"{rel} > {tol}")
+        # The entry point: the chain in folded layouts, counted.
+        x = torch.rand(K7_CHAIN[0][0], device=dev, generator=gen).to(
+            torch.bfloat16)
+        torch.cuda.synchronize()
+        reset_launches(fk)
+        y, g = x, 1
+        for (shape, co, stride), (w, b) in zip(K7_CHAIN, params):
+            y = conv2d_folded(y, w, b, stride=stride, slope=0.1, in_g=g)
+            g = pick_g(-(-shape[2] // stride), co)
+        torch.cuda.synchronize()
+        launches = fk.LAUNCHES["conv_folded"]
+        ref = x
+        for (shape, co, stride), (w, b) in zip(K7_CHAIN, params):
+            ref = conv_ref(ref, w, b, stride=stride, slope=0.1)
+        chain_rel = rel_err(unfold_w(y, g), ref)[1]
+    emit({"phase": "k7_chain", "launches": launches,
+          "folded_shape": tuple(y.shape), "rel_err": chain_rel,
+          "tol": 2 * CONV_TOL[torch.bfloat16]})
+    if launches != len(K7_CHAIN) or not chain_rel <= 2 * CONV_TOL[
+            torch.bfloat16]:
+        raise AssertionError(f"K7 chain: {launches} launches, rel err "
+                             f"{chain_rel}")
+    return {"rows": rows, "launches": launches}
+
+
+def spatial_expected(s: int, backend: str) -> dict:
+    """Launches of one 512x1024 spatial forward on each of s ranks."""
+    from pwcnet_tpu_torch.ops.warp_corr import fused_is_profitable
+    k6p = 0
+    if backend == "fused":
+        k6p = sum(fused_is_profitable(512 // 2 ** lv // s, 1024 // 2 ** lv)
+                  for lv in (5, 4, 3, 2))
+    out = {"corr_fwd_prepadded": 5 - k6p, "stem_fwd": 1}
+    if k6p:
+        out["warp_corr_fwd_prepadded"] = k6p
+    return out
+
+
+def level_errs(flows, full, ref) -> list:
+    return [rel_err(g.cpu(), w.cpu())[1]
+            for g, w in zip([*flows, full], [*ref[0], ref[1]])]
+
+
+def spatial_phases(dev, timer, smi) -> dict:
+    """spatial_s1, spatial_s2, spatial_s4: parallel.spatial_forward at
+    512x1024 against the unsharded port forward on the card (f32, TF32
+    off, per level and the full-res flow, within FWD_TOL), with launch
+    counts. S = 1 runs in this process; S = 2 and 4 in gloo rank processes
+    on this card (halos staged through host memory), which load the kernels
+    this process built. bf16 runs are timed (wall per forward)."""
+    import shutil
+    from pwcnet_tpu_torch import PWCNet
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
+    from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
+    from pwcnet_tpu_torch.parallel import (MeshConfig, make_mesh,
+                                           spatial_forward)
+    from pwcnet_tpu_torch.parallel.launch import run_ranks
+    rng = np.random.default_rng(1)
+    base = rng.random((*SPATIAL_HW, 3), np.float32)
+    im1 = torch.from_numpy(base)[None]
+    im2 = torch.from_numpy(np.roll(base, (2, 5), (0, 1)))[None]
+    state = PWCNet(device="cpu", generator=torch.Generator().manual_seed(0)
+                   ).state_dict()
+
+    def model(backend, dtype):
+        m = PWCNet(device=dev, corr_backend=backend, dtype=dtype).eval()
+        m.load_state_dict(state)
+        return m
+
+    ref = {}
+    with torch.inference_mode():
+        for backend in ("pallas", "fused"):
+            m = model(backend, torch.float32)
+            flows = m(im1.to(dev), im2.to(dev))
+            ref[backend] = (flows, m.full_res_flow(flows, SPATIAL_HW))
+    results = {}
+
+    # -- S = 1, this process ---------------------------------------------
+    mesh = make_mesh(MeshConfig(spatial=1), device=dev)
+    row = {"phase": "spatial_s1", "hw": list(SPATIAL_HW), "rel_err": {},
+           "launches": {}, "tol": FWD_TOL, "nvidia_smi": smi}
+    with torch.inference_mode():
+        for backend in ("pallas", "fused"):
+            flows, full = spatial_forward(model(backend, torch.float32),
+                                          mesh, im1, im2)
+            row["rel_err"][backend] = level_errs(flows, full, ref[backend])
+            m = model(backend, torch.bfloat16)
+            spatial_forward(m, mesh, im1, im2)  # warm-up
+            torch.cuda.synchronize()
+            reset_launches(ck, sk, wk)
+            flows, full = spatial_forward(m, mesh, im1, im2)
+            torch.cuda.synchronize()
+            row["launches"][backend] = {k: v for mod in (ck, sk, wk)
+                                        for k, v in mod.LAUNCHES.items() if v}
+            row[f"finite_{backend}"] = all(
+                bool(torch.isfinite(f).all()) for f in [*flows, full])
+            row[f"ms_wall_bf16_{backend}"] = wall_ms(
+                lambda: spatial_forward(m, mesh, im1, im2), reps=SPATIAL_REPS)
+            row[f"ms_device_bf16_{backend}"] = timer(
+                lambda: spatial_forward(m, mesh, im1, im2), reps=10, inner=1)
+            busy, n_launch, _ = profile_kernels(
+                lambda: spatial_forward(m, mesh, im1, im2))
+            row[f"device_busy_ms_bf16_{backend}"] = busy
+            row[f"kernel_launches_bf16_{backend}"] = n_launch
+    emit(row)
+    results[1] = row
+    bad = [b for b in ("pallas", "fused")
+           if row["launches"][b] != spatial_expected(1, b)
+           or not row[f"finite_{b}"] or not max(row["rel_err"][b]) <= FWD_TOL]
+    if bad:
+        raise AssertionError(f"spatial_s1 failed for {bad}: {row}")
+
+    # -- S = 2 and 4, one gloo process per rank on this card --------------
+    for s in (2, 4):
+        tasks = [dict(kind="forward", state_dict=state, im1=im1, im2=im2,
+                      model=dict(corr_backend=b)) for b in ("pallas",
+                                                            "fused")]
+        if s == 2:
+            tasks += [dict(kind="forward", state_dict=state, im1=im1,
+                           im2=im2, reps=SPATIAL_REPS, profile=True,
+                           model=dict(corr_backend=b, dtype=torch.bfloat16))
+                      for b in ("pallas", "fused")]
+        t0 = time.perf_counter()
+        # The job files hold the weights (~40 MB): under build/, removed.
+        job_dir = os.path.join(RUN_DIR, f"spatial_s{s}")
+        runs = run_ranks(s, dict(backend="gloo", device=str(dev),
+                                 allow_tf32=False, tasks=tasks), job_dir,
+                         timeout=600)
+        shutil.rmtree(job_dir)
+        row = {"phase": f"spatial_s{s}", "hw": list(SPATIAL_HW),
+               "seconds": time.perf_counter() - t0, "tol": FWD_TOL,
+               "rel_err": {}, "launches": {}, "nvidia_smi": smi}
+        ok = True
+        for i, task in enumerate(tasks):
+            backend = task["model"]["corr_backend"]
+            key = backend + ("_bf16" if "dtype" in task["model"] else "")
+            got = runs[0][i]
+            launches = [r[i]["launches"] for r in runs]
+            row["launches"][key] = launches[0]
+            ok &= all(la == spatial_expected(s, backend) for la in launches)
+            if "dtype" in task["model"]:
+                row[f"finite_{key}"] = all(
+                    bool(torch.isfinite(f).all())
+                    for f in [*got["flows"], got["full"]])
+                row[f"ms_wall_{key}"] = got["wall_ms"]
+                row[f"profile_rank0_{key}"] = got["profile"]
+                ok &= row[f"finite_{key}"]
+            else:
+                errs = level_errs(got["flows"], got["full"], ref[backend])
+                row["rel_err"][key] = errs
+                ok &= max(errs) <= FWD_TOL
+        emit(row)
+        results[s] = row
+        if not ok:
+            raise AssertionError(f"spatial_s{s} failed: {row}")
+    return results
+
+
 def cli_phase(out_dir: str) -> None:
     """cli: the command line in subprocesses, on the card: predict on the
     repo's parity pair (.flo and --vis PNG), eval of the fused config on 16
@@ -936,7 +1312,8 @@ def main() -> int:
     from pwcnet_tpu_torch import PWCNet, predict_flow
     from pwcnet_tpu_torch.io import read_flo, write_flo
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume_ref
-    from pwcnet_tpu_torch.ops.kernels import (build, cost_volume_kernel,
+    from pwcnet_tpu_torch.ops.kernels import (build, conv_folded_kernel,
+                                              cost_volume_kernel,
                                               stem_kernel, warp_corr_kernel)
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1032,6 +1409,11 @@ def main() -> int:
     k6_timed = check_k6(timer, dev, gen)
     k6_crossover(timer, dev, gen)
 
+    # -- 3d. The spatial path's halo-row kernels K1p, K6p, and K7 -----------
+    k1p_timed = check_k1p(timer, dev, gen)
+    k6p_timed = check_k6p(timer, dev, gen)
+    k7 = check_k7(timer, dev, gen)
+
     # -- 4. The whole forward ----------------------------------------------
     rng = np.random.default_rng(0)
     base = rng.random((448, 1024, 3), np.float32)
@@ -1097,6 +1479,9 @@ def main() -> int:
     # -- 4b. The fused forward (K6 at every warped level) --------------------
     fused_forward(dev, base, timer, smi)
 
+    # -- 4c. The spatially sharded forward on 1, 2 and 4 ranks ---------------
+    spatial = spatial_phases(dev, timer, smi)
+
     # -- 5. Times -------------------------------------------------------------
     with torch.inference_mode():
         b1_wall = wall_ms(lambda: model(im1, im2))
@@ -1127,6 +1512,7 @@ def main() -> int:
     def entry(name, source, replaces, rows, launches=train_launches):
         nbytes = sum(r["bytes_ms"] for r in rows)
         ops = sum(r["ops_ms"] for r in rows)
+        lib = [r.get("library_ms") for r in rows]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": int(launches[name]),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -1134,7 +1520,7 @@ def main() -> int:
                 "plain_ms": sum(r["plain_ms"] for r in rows),
                 "bound_ms": sum(r["bound_ms"] for r in rows),
                 "bound_by": "bytes" if nbytes >= ops else "operations",
-                "library_ms": None}
+                "library_ms": None if None in lib else sum(lib)}
 
     ck, sk = cost_volume_kernel, stem_kernel
     kernels = [
@@ -1148,6 +1534,18 @@ def main() -> int:
         entry("warp_corr_fwd", warp_corr_kernel.SOURCE,
               warp_corr_kernel.REPLACES, list(k6_timed["train"].values()),
               fused_launches),
+        # The spatial path: K1p and K6p at the S = 2 shard shapes, with
+        # their launches per bf16 S = 2 spatial forward (rank 0; "pallas"
+        # for K1p, "fused" for K6p); K7 at the 448x1024 stem chain, with
+        # its launches per chain.
+        entry("corr_fwd_prepadded", ck.SOURCE, ck.PRE_REPLACES,
+              list(k1p_timed.values()), spatial[2]["launches"]["pallas_bf16"]),
+        entry("warp_corr_fwd_prepadded", warp_corr_kernel.SOURCE,
+              warp_corr_kernel.PRE_REPLACES, list(k6p_timed.values()),
+              spatial[2]["launches"]["fused_bf16"]),
+        entry("conv_folded", conv_folded_kernel.SOURCE,
+              conv_folded_kernel.REPLACES, k7["rows"],
+              {"conv_folded": k7["launches"]}),
     ]
     emit({"phase": "inference_kernels", "corr_fwd_ms_448x1024": sum(
         r["ms"] for r in k1_main.values()), "stem_fwd_ms_448x1024":

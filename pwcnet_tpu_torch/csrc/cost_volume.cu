@@ -1,10 +1,18 @@
 // Correlation forward (the PWC-Net cost volume), written by hand for Hopper.
 //
 // Replaces: pwcnet_tpu/ops/pallas/cost_volume_kernel.py, _corr_fwd_kernel
-// (launched by _corr_forward_pallas; entry cost_volume_pallas).
+// (launched by _corr_forward_pallas; entry cost_volume_pallas), as K1, and
+// the same kernel under _corr_forward_pallas(rows_prepadded=True) (entry
+// cost_volume_pallas_prepadded), as K1p.
 //
 //   out[n, y, x, k] = (1/C) * sum_c f1[n, y, x, c] * f2[n, y + dy, x + dx, c]
 //   k = (dy + d) * (2d + 1) + (dx + d),  |dy|, |dx| <= d,  f2 = 0 outside.
+//
+// K1p is the spatially sharded form: f2 arrives as f2e with d real halo rows
+// above and below (rows [-d, H + d) of the shard), so only columns outside
+// [0, W) read zeros. One kernel serves both: f2 row y of the output frame is
+// row y + f2_off of an f2 array of f2_rows rows (K1: off 0, H rows; K1p:
+// off d, H + 2d rows).
 //
 // Layout: f1, f2 and out are NHWC and contiguous, so each tap is a dot product
 // over the contiguous C. Inputs are converted to f32 as they are staged, the
@@ -45,10 +53,14 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// Two blocks per SM: at d = 4 (576 threads) that caps the kernel at 56
+// registers. Without the cap the two extra arguments of the K1p entry took
+// it to 74-78 registers, one block per SM, and K1 ran up to 45% slower at the
+// large levels (tools/ab_kernels.py on the H100; PERF.md, section 6).
 template <typename T, int D>
-__global__ void __launch_bounds__(TW * TH * (2 * D + 1))
+__global__ void __launch_bounds__(TW * TH * (2 * D + 1), 2)
 corr_fwd(const T* __restrict__ f1, const T* __restrict__ f2,
-         T* __restrict__ out, int H, int W, int C) {
+         T* __restrict__ out, int H, int W, int C, int f2_rows, int f2_off) {
   constexpr int S = 2 * D + 1;
   constexpr int K = S * S;
   constexpr int HR = TH + 2 * D;  // f2 tile rows, halo included
@@ -68,6 +80,7 @@ corr_fwd(const T* __restrict__ f1, const T* __restrict__ f2,
   const int ty = threadIdx.y / S;
   const int dy = threadIdx.y % S;
   const size_t img = static_cast<size_t>(n) * H * W;
+  const size_t img2 = static_cast<size_t>(n) * f2_rows * W;
 
   float acc[S];
 #pragma unroll
@@ -84,10 +97,10 @@ corr_fwd(const T* __restrict__ f1, const T* __restrict__ f2,
     }
     for (int e = tid; e < F2N; e += nthr) {
       const int c = e % CC, p = e / CC, col = p % HC, row = p / HC;
-      const int y = y0 + row - D, x = x0 + col - D, cc = c0 + c;
+      const int y = y0 + row - D + f2_off, x = x0 + col - D, cc = c0 + c;
       float v = 0.f;
-      if (y >= 0 && y < H && x >= 0 && x < W && cc < C)
-        v = load_f32(f2 + (img + static_cast<size_t>(y) * W + x) * C + cc);
+      if (y >= 0 && y < f2_rows && x >= 0 && x < W && cc < C)
+        v = load_f32(f2 + (img2 + static_cast<size_t>(y) * W + x) * C + cc);
       f2s[(c * HR + row) * HC + col] = v;
     }
     __syncthreads();
@@ -122,37 +135,51 @@ corr_fwd(const T* __restrict__ f1, const T* __restrict__ f2,
 
 template <typename T, int D>
 cudaError_t launch(const void* f1, const void* f2, void* out, int n, int h,
-                   int w, int c, cudaStream_t stream) {
+                   int w, int c, int pre, cudaStream_t stream) {
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, n);
   const dim3 block(TW, TH * (2 * D + 1));
   corr_fwd<T, D><<<grid, block, 0, stream>>>(
       static_cast<const T*>(f1), static_cast<const T*>(f2),
-      static_cast<T*>(out), h, w, c);
+      static_cast<T*>(out), h, w, c, pre ? h + 2 * D : h, pre ? D : 0);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* f1, const void* f2, void* out, int n, int h,
-                     int w, int c, int d, cudaStream_t s) {
+                     int w, int c, int d, int pre, cudaStream_t s) {
   switch (d) {
-    case 1: return launch<T, 1>(f1, f2, out, n, h, w, c, s);
-    case 2: return launch<T, 2>(f1, f2, out, n, h, w, c, s);
-    case 3: return launch<T, 3>(f1, f2, out, n, h, w, c, s);
-    case 4: return launch<T, 4>(f1, f2, out, n, h, w, c, s);
+    case 1: return launch<T, 1>(f1, f2, out, n, h, w, c, pre, s);
+    case 2: return launch<T, 2>(f1, f2, out, n, h, w, c, pre, s);
+    case 3: return launch<T, 3>(f1, f2, out, n, h, w, c, pre, s);
+    case 4: return launch<T, 4>(f1, f2, out, n, h, w, c, pre, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+int run(const void* f1, const void* f2, void* out, int n, int h, int w,
+        int c, int d, int pre, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e =
+      is_bf16 ? dispatch<__nv_bfloat16>(f1, f2, out, n, h, w, c, d, pre, s)
+              : dispatch<float>(f1, f2, out, n, h, w, c, d, pre, s);
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
-// f1, f2: (n, h, w, c); out: (n, h, w, (2d+1)^2); all contiguous, of one
+// K1. f1, f2: (n, h, w, c); out: (n, h, w, (2d+1)^2); all contiguous, of one
 // type: bf16 when is_bf16, else f32. 1 <= d <= 4. Returns the CUDA error.
 extern "C" int pwc_cost_volume_fwd(const void* f1, const void* f2, void* out,
                                    int n, int h, int w, int c, int d,
                                    int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e =
-      is_bf16 ? dispatch<__nv_bfloat16>(f1, f2, out, n, h, w, c, d, s)
-              : dispatch<float>(f1, f2, out, n, h, w, c, d, s);
-  return static_cast<int>(e);
+  return run(f1, f2, out, n, h, w, c, d, 0, is_bf16, stream);
+}
+
+// K1p. f1: (n, h, w, c); f2e: (n, h + 2d, w, c), rows [-d, h + d) of the
+// shard; out: (n, h, w, (2d+1)^2); as pwc_cost_volume_fwd otherwise.
+extern "C" int pwc_cost_volume_fwd_prepadded(const void* f1, const void* f2e,
+                                             void* out, int n, int h, int w,
+                                             int c, int d, int is_bf16,
+                                             void* stream) {
+  return run(f1, f2e, out, n, h, w, c, d, 1, is_bf16, stream);
 }

@@ -5,6 +5,11 @@ Activations inside the modules are NCHW tensors (held channels-last by the
 model); parameters are f32 and cast to the activations' dtype at each conv,
 as flax ``nn.Conv(dtype=..., param_dtype=float32)`` does. Convs use XLA
 SAME padding (``conv_same``) and LeakyReLU slope 0.1.
+
+Every ``forward`` takes an optional ``mesh``
+(``pwcnet_tpu_torch.parallel.mesh.SpatialMesh``): with one, the input is
+this rank's rows of an H-sharded activation and each conv exchanges the
+rows it reads across shard edges (``parallel/spatial_ops.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from torch import nn
 
 from pwcnet_tpu_torch.ops.conv import conv_same, leaky_relu  # noqa: F401
 from pwcnet_tpu_torch.ops.kernels.stem_kernel import stem, stem_ref
+from pwcnet_tpu_torch.parallel.spatial_ops import conv_rows, stem_rows
 
 
 class Conv3x3(nn.Module):
@@ -28,7 +34,10 @@ class Conv3x3(nn.Module):
         self.weight = nn.Parameter(torch.zeros(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.zeros(cout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        if mesh is not None:
+            return conv_rows(x, self.weight, self.bias, self.stride,
+                             self.dilation, mesh)
         return conv_same(x, self.weight, self.bias, self.stride,
                          self.dilation)
 
@@ -50,8 +59,8 @@ class ConvBlock(nn.Module):
                                       "ported yet")
         self.conv = Conv3x3(cin, features, stride, dilation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return leaky_relu(self.conv(x))
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        return leaky_relu(self.conv(x, mesh))
 
 
 class StemConvs(nn.Module):
@@ -79,7 +88,7 @@ class StemConvs(nn.Module):
         return [(c.weight, c.bias) for c in
                 (self.conv1, self.conv2, self.conv3, self.conv4)]
 
-    def forward(self, im: torch.Tensor) -> torch.Tensor:
+    def _run(self, im: torch.Tensor) -> torch.Tensor:
         if self.backend == "lax":
             if im.is_cuda:
                 raise NotImplementedError(
@@ -87,6 +96,11 @@ class StemConvs(nn.Module):
                     "runs the fused stem kernel")
             return stem_ref(im, self.params())
         return stem(im.contiguous(), self.params())
+
+    def forward(self, im: torch.Tensor, mesh=None) -> torch.Tensor:
+        if mesh is not None:
+            return stem_rows(im, self._run, mesh)
+        return self._run(im)
 
 
 class ConvStack(nn.Module):
@@ -100,7 +114,7 @@ class ConvStack(nn.Module):
             ConvBlock(a, b, use_norm=use_norm)
             for a, b in zip(widths[:-1], widths[1:]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         for block in self.blocks:
-            x = block(x)
+            x = block(x, mesh)
         return x

@@ -9,6 +9,12 @@ already the contiguous NHWC that the correlation and stem kernels take.
 The flow chain stays f32 in a bf16 model: the estimator's and the context
 net's flow convs are cast to f32, and the upsampled flow is cast to the
 working dtype only for the concat.
+
+``forward(..., mesh=...)`` runs the spatially sharded forward on this rank's
+image rows (``pwcnet_tpu_torch.parallel.spatial.spatial_forward`` is the
+entry that shards and gathers): the convs, the stem and the upsampling
+exchange rows across shard edges (``parallel/spatial_ops.py``), and the
+warp + correlation runs on halo rows (``parallel/halo.py``: K1p, K6p).
 """
 
 from __future__ import annotations
@@ -25,6 +31,10 @@ from pwcnet_tpu_torch.ops.cost_volume import cost_volume
 from pwcnet_tpu_torch.ops.resize import resize_bilinear
 from pwcnet_tpu_torch.ops.warp import warp_bilinear
 from pwcnet_tpu_torch.ops.warp_corr import fused_is_profitable, warp_corr
+from pwcnet_tpu_torch.parallel.halo import warp_corr_spatial
+from pwcnet_tpu_torch.parallel.mesh import SPATIAL_AXIS
+from pwcnet_tpu_torch.parallel.spatial_ops import (input_norm_rows,
+                                                   upsample2x_rows)
 
 # Level l (1-indexed, 1/2^l resolution) -> channels.
 DEFAULT_PYRAMID_CHANNELS: Tuple[int, ...] = (16, 32, 64, 96, 128, 196, 224)
@@ -80,17 +90,17 @@ class FeaturePyramidExtractor(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.first_level = start + 1
 
-    def forward(self, im: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, im: torch.Tensor, mesh=None) -> List[torch.Tensor]:
         feats = []
         if self.stem is not None:
-            x = _nchw(self.stem(im))
+            x = _nchw(self.stem(im, mesh))
             if self.min_level <= 2:
                 feats.append(x)
         else:
             x = _nchw(im).contiguous(memory_format=torch.channels_last)
         level = self.first_level
         for i in range(0, len(self.blocks), 2):
-            x = self.blocks[i + 1](self.blocks[i](x))
+            x = self.blocks[i + 1](self.blocks[i](x, mesh), mesh)
             if level >= self.min_level:
                 feats.append(x)
             level += 1
@@ -105,9 +115,9 @@ class OpticalFlowEstimator(nn.Module):
         self.stack = ConvStack(cin, ESTIMATOR_CHANNELS, use_norm=use_norm)
         self.flow = Conv3x3(ESTIMATOR_CHANNELS[-1], 2)
 
-    def forward(self, x: torch.Tensor):
-        feat = self.stack(x)
-        return feat, self.flow(feat).float()
+    def forward(self, x: torch.Tensor, mesh=None):
+        feat = self.stack(x, mesh)
+        return feat, self.flow(feat, mesh).float()
 
 
 class ContextNetwork(nn.Module):
@@ -122,11 +132,12 @@ class ContextNetwork(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.flow = Conv3x3(cin, 2)
 
-    def forward(self, feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    def forward(self, feat: torch.Tensor, flow: torch.Tensor,
+                mesh=None) -> torch.Tensor:
         x = torch.cat([feat, flow.to(feat.dtype)], 1)
         for block in self.blocks:
-            x = block(x)
-        return self.flow(x).float()
+            x = block(x, mesh)
+        return self.flow(x, mesh).float()
 
 
 class PWCNet(nn.Module):
@@ -138,9 +149,12 @@ class PWCNet(nn.Module):
     fused warp + correlation (K6) at the warped levels of at least
     ``fused_min_pixels`` pixels (None: the port's ``FUSED_MIN_PIXELS``; 0:
     every warped level), and warp + correlation elsewhere, as the JAX model
-    dispatches. ``device=None`` means the GPU, and raises when there is
-    none. Weights are drawn from ``generator`` (seed 0 when None)
-    with the flax defaults' law.
+    dispatches. ``spatial_axis`` (None or ``"spatial"``) and
+    ``spatial_halo`` (halo rows per level, bounding the warp's vertical
+    reach across shards) are the JAX model's: a model with a spatial axis
+    runs only under a mesh (``forward(..., mesh=...)``). ``device=None``
+    means the GPU, and raises when there is none. Weights are drawn from
+    ``generator`` (seed 0 when None) with the flax defaults' law.
     """
 
     def __init__(self, num_levels: int = 6, output_level: int = 4,
@@ -151,6 +165,7 @@ class PWCNet(nn.Module):
                  fused_min_pixels: Optional[int] = None,
                  flow_scale: float = 20.0,
                  resize_mode: str = "half_pixel", spatial_axis=None,
+                 spatial_halo: int = 16,
                  dtype: torch.dtype = torch.float32,
                  device: Optional[Union[str, torch.device]] = None,
                  generator: Optional[torch.Generator] = None):
@@ -161,9 +176,14 @@ class PWCNet(nn.Module):
         if not 0 <= output_level < num_levels:
             raise ValueError(f"output_level must be in 0..{num_levels - 1}, "
                              f"got {output_level}")
-        if spatial_axis is not None:
-            raise NotImplementedError("spatial_axis is not ported yet "
-                                      "(ROADMAP A7)")
+        if spatial_axis not in (None, SPATIAL_AXIS):
+            raise ValueError(f"spatial_axis must be None or "
+                             f"{SPATIAL_AXIS!r}, got {spatial_axis!r}")
+        if spatial_axis is not None and resize_mode != "half_pixel":
+            raise NotImplementedError(
+                "the spatial path upsamples half-pixel only; "
+                f"resize_mode={resize_mode!r} under spatial_axis is not "
+                "ported (ROADMAP A7)")
         if corr_backend not in ("pallas", "fused"):
             raise ValueError(f"unknown corr_backend {corr_backend!r}")
         if dtype not in (torch.float32, torch.bfloat16):
@@ -174,6 +194,7 @@ class PWCNet(nn.Module):
         self.flow_scale, self.resize_mode = flow_scale, resize_mode
         self.corr_backend = corr_backend
         self.fused_min_pixels = fused_min_pixels
+        self.spatial_axis, self.spatial_halo = spatial_axis, spatial_halo
         self.dtype = dtype
 
         chans = DEFAULT_PYRAMID_CHANNELS[:num_levels]
@@ -196,26 +217,39 @@ class PWCNet(nn.Module):
         """Inputs' H and W must be divisible by this."""
         return 2 ** self.num_levels
 
-    def _prepare(self, im: torch.Tensor) -> torch.Tensor:
+    def _prepare(self, im: torch.Tensor, mesh=None) -> torch.Tensor:
         im = im.to(self.device, torch.float32)
         if self.input_center:
             im = im * 2.0 - 1.0
-        if self.input_norm:
+        if self.input_norm and mesh is not None:
+            im = input_norm_rows(im, mesh)
+        elif self.input_norm:
             m = im.mean((1, 2, 3), keepdim=True)
             s = im.std((1, 2, 3), keepdim=True, correction=0) + 1e-6
             im = (im - m) / s
         return im.to(self.dtype)
 
     def forward(self, im1: torch.Tensor, im2: torch.Tensor,
-                intermediates: Optional[Dict[str, list]] = None
-                ) -> List[torch.Tensor]:
+                intermediates: Optional[Dict[str, list]] = None,
+                mesh=None) -> List[torch.Tensor]:
         """(N, H, W, 3) images in [0, 1], H and W divisible by
         ``pad_divisor`` -> per-level f32 flows, coarsest first.
 
         When ``intermediates`` is a dict, it receives the pyramid of both
         frames (``"pyramid"``, NHWC, coarsest first) and each level's
         correlation before its LeakyReLU (``"corr"``, NHWC).
+
+        With a ``mesh`` (``parallel.mesh.SpatialMesh``), the images are this
+        rank's rows ``[r*t, (r+1)*t)`` of the H-sharded pair (the whole
+        image's H divisible by ``pad_divisor * mesh.size``), and so are the
+        returned flows; every rank of the mesh must call it.
         """
+        if mesh is None and self.spatial_axis is not None:
+            raise ValueError("a model with spatial_axis runs under a mesh: "
+                             "pass mesh=, or use parallel.spatial_forward")
+        if mesh is not None and self.resize_mode != "half_pixel":
+            raise NotImplementedError(
+                "the spatial path upsamples half-pixel only (ROADMAP A7)")
         div = self.pad_divisor
         h, w = im1.shape[1], im1.shape[2]
         if h % div or w % div:
@@ -224,8 +258,9 @@ class PWCNet(nn.Module):
                 f"{(h, w)} - pad the images (see pwcnet_tpu_torch.train."
                 f"evaluate.pad_to_divisible for the inference path)")
         n = im1.shape[0]
-        both = torch.cat([self._prepare(im1), self._prepare(im2)], 0)
-        pyr = self.pyramid(both)
+        both = torch.cat([self._prepare(im1, mesh),
+                          self._prepare(im2, mesh)], 0)
+        pyr = self.pyramid(both, mesh)
         if intermediates is not None:
             intermediates["pyramid"] = [_nhwc(p) for p in pyr]
             intermediates["corr"] = []
@@ -237,28 +272,36 @@ class PWCNet(nn.Module):
             level = self.num_levels - i
             f1, f2 = pyr[i][:n], pyr[i][n:]
             f1h, f2h = _nhwc(f1), _nhwc(f2)
+            pix = None
             if flow is None:
                 up_flow = f1h.new_zeros(f1h.shape[:3] + (2,),
                                         dtype=torch.float32)
-                corr = cost_volume(f1h, f2h, max_displacement=d)
             else:
-                up_flow = resize_bilinear(flow, tuple(f1h.shape[1:3]),
-                                          self.resize_mode)
+                up_flow = (upsample2x_rows(flow, mesh) if mesh is not None
+                           else resize_bilinear(flow, tuple(f1h.shape[1:3]),
+                                                self.resize_mode))
                 pix = up_flow * (self.flow_scale / 2.0 ** level)
-                if self.corr_backend == "fused" and fused_is_profitable(
-                        f1h.shape[1], f1h.shape[2], self.fused_min_pixels):
-                    corr = warp_corr(f1h, f2h, pix, max_displacement=d)
-                else:
-                    corr = cost_volume(f1h, warp_bilinear(f2h, pix),
-                                       max_displacement=d)
+            if mesh is not None:
+                corr = warp_corr_spatial(
+                    f1h, f2h, pix, mesh, max_displacement=d,
+                    halo_rows=self.spatial_halo, backend=self.corr_backend,
+                    fused_min_pixels=self.fused_min_pixels)
+            elif pix is None:
+                corr = cost_volume(f1h, f2h, max_displacement=d)
+            elif self.corr_backend == "fused" and fused_is_profitable(
+                    f1h.shape[1], f1h.shape[2], self.fused_min_pixels):
+                corr = warp_corr(f1h, f2h, pix, max_displacement=d)
+            else:
+                corr = cost_volume(f1h, warp_bilinear(f2h, pix),
+                                   max_displacement=d)
             if intermediates is not None:
                 intermediates["corr"].append(corr)
             x = torch.cat([_nchw(leaky_relu(corr)), f1,
                            _nchw(up_flow.to(self.dtype))], 1)
-            feat, delta = self.estimators[f"l{level}"](x)
+            feat, delta = self.estimators[f"l{level}"](x, mesh)
             flow = up_flow + _nhwc(delta) if self.residual else _nhwc(delta)
             if i == self.output_level:
-                flow = flow + _nhwc(self.context(feat, _nchw(flow)))
+                flow = flow + _nhwc(self.context(feat, _nchw(flow), mesh))
             flows.append(flow)
         return flows
 

@@ -7,6 +7,12 @@ Counterpart of ``pwcnet_tpu/ops/pallas/cost_volume_kernel.py``: the forward
 ``custom_vjp`` ties them. The plain version is
 ``pwcnet_tpu_torch.ops.cost_volume.cost_volume_ref`` (its gradients are
 autograd's).
+
+K1p, the same forward on an f2 that carries d real halo rows
+(``_corr_forward_pallas(rows_prepadded=True)``, entry
+``cost_volume_pallas_prepadded``), is the second entry of
+``csrc/cost_volume.cu``. Its backward is autograd of the plain version
+``cost_volume_prepadded_ref``, as ``_cv_pre_bwd`` differentiates the lax one.
 """
 
 from __future__ import annotations
@@ -23,10 +29,12 @@ REPLACES = "pwcnet_tpu/ops/pallas/cost_volume_kernel.py:116"
 BWD_SOURCE = "pwcnet_tpu_torch/csrc/cost_volume_bwd.cu"
 BWD_F1_REPLACES = "pwcnet_tpu/ops/pallas/cost_volume_kernel.py:187"
 BWD_F2_REPLACES = "pwcnet_tpu/ops/pallas/cost_volume_kernel.py:203"
+PRE_REPLACES = "pwcnet_tpu/ops/pallas/cost_volume_kernel.py:134"
 MAX_DISPLACEMENT = 4  # the kernels are built for 1 <= d <= 4
 
 # Kernel launches in this process; each wrapper adds one per launch.
-LAUNCHES = {"corr_fwd": 0, "corr_bwd_f1": 0, "corr_bwd_f2": 0}
+LAUNCHES = {"corr_fwd": 0, "corr_bwd_f1": 0, "corr_bwd_f2": 0,
+            "corr_fwd_prepadded": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +47,13 @@ def _fwd_fn():
     return fn
 
 
+def _fwd_pre_fn():
+    fn = load_library("cost_volume").pwc_cost_volume_fwd_prepadded
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
 def _bwd_fn():
     fn = load_library("cost_volume_bwd").pwc_cost_volume_bwd
     fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -46,16 +61,21 @@ def _bwd_fn():
     return fn
 
 
-def _check_features(f1: torch.Tensor, f2: torch.Tensor, d: int) -> None:
+def _check_features(f1: torch.Tensor, f2: torch.Tensor, d: int,
+                    f2_extra_rows: int = 0) -> None:
+    """f1 (N, H, W, C) and f2 (N, H + f2_extra_rows, W, C), contiguous, of
+    one type, on one CUDA device."""
     if not (f1.is_cuda and f2.device == f1.device):
         raise ValueError("the correlation kernels take tensors on one CUDA "
                          f"device, got {f1.device} and {f2.device}")
     if f1.dtype not in (torch.float32, torch.bfloat16) or f2.dtype != f1.dtype:
         raise TypeError(f"f32 or bf16 inputs of one type expected, got "
                         f"{f1.dtype} and {f2.dtype}")
-    if f1.dim() != 4 or f1.shape != f2.shape or min(f1.shape) < 1:
+    want = f1.shape[:1] + (f1.shape[1] + f2_extra_rows,) + f1.shape[2:]
+    if f1.dim() != 4 or f2.shape != want or min(f1.shape) < 1:
         raise ValueError(f"shapes {tuple(f1.shape)} and {tuple(f2.shape)}: "
-                         "two equal non-empty (N, H, W, C) expected")
+                         f"non-empty (N, H, W, C) and (N, H + "
+                         f"{f2_extra_rows}, W, C) expected")
     if not (f1.is_contiguous() and f2.is_contiguous()):
         raise ValueError("the correlation kernels need contiguous NHWC "
                          "inputs")
@@ -81,6 +101,28 @@ def cost_volume_cuda(f1: torch.Tensor, f2: torch.Tensor,
         raise RuntimeError(f"cost_volume kernel launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["corr_fwd"] += 1
+    return out
+
+
+def cost_volume_prepadded_cuda(f1: torch.Tensor, f2e: torch.Tensor,
+                               max_displacement: int = 4) -> torch.Tensor:
+    """K1p: f1 (N, H, W, C) and f2e (N, H + 2d, W, C), rows [-d, H + d) of
+    the shard, on one CUDA device -> (N, H, W, (2d+1)^2). No autograd:
+    ``cost_volume_prepadded_fn`` is the differentiable entry."""
+    d = max_displacement
+    _check_features(f1, f2e, d, 2 * d)
+    n, h, w, c = f1.shape
+    out = torch.empty((n, h, w, (2 * d + 1) ** 2), dtype=f1.dtype,
+                      device=f1.device)
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fwd_pre_fn()(f1.data_ptr(), f2e.data_ptr(), out.data_ptr(), n,
+                            h, w, c, d, int(f1.dtype == torch.bfloat16),
+                            stream)
+    if err:
+        raise RuntimeError(f"cost_volume_prepadded kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["corr_fwd_prepadded"] += 1
     return out
 
 
@@ -146,3 +188,39 @@ def cost_volume_fn(f1: torch.Tensor, f2: torch.Tensor,
     """The differentiable correlation on CUDA tensors (K1; K2, K3 when
     autograd asks for gradients)."""
     return CostVolumeFunction.apply(f1, f2, max_displacement)
+
+
+def autograd_of(ref, inputs, grad, needs):
+    """Gradients of ``ref(*inputs)`` for the output gradient ``grad``,
+    through autograd of a plain version; None where ``needs`` is False."""
+    with torch.enable_grad():
+        args = [t.detach().requires_grad_(bool(need))
+                for t, need in zip(inputs, needs)]
+        wrt = [a for a in args if a.requires_grad]
+        grads = list(torch.autograd.grad(ref(*args), wrt, grad)) \
+            if wrt else []
+    return [grads.pop(0) if need else None for need in needs]
+
+
+class CostVolumePrepaddedFunction(torch.autograd.Function):
+    """K1p forward; backward through autograd of the plain version."""
+
+    @staticmethod
+    def forward(ctx, f1, f2e, max_displacement):
+        ctx.d = max_displacement
+        ctx.save_for_backward(f1, f2e)
+        return cost_volume_prepadded_cuda(f1, f2e, max_displacement)
+
+    @staticmethod
+    def backward(ctx, g):
+        from pwcnet_tpu_torch.ops.cost_volume import cost_volume_prepadded_ref
+        df1, df2e = autograd_of(
+            lambda a, b: cost_volume_prepadded_ref(a, b, ctx.d),
+            ctx.saved_tensors, g, ctx.needs_input_grad[:2])
+        return df1, df2e, None
+
+
+def cost_volume_prepadded_fn(f1: torch.Tensor, f2e: torch.Tensor,
+                             max_displacement: int = 4) -> torch.Tensor:
+    """The differentiable halo-row correlation on CUDA tensors (K1p)."""
+    return CostVolumePrepaddedFunction.apply(f1, f2e, max_displacement)

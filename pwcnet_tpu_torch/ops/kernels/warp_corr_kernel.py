@@ -8,6 +8,13 @@ recompute the warped tensor, run the correlation backward kernels (K2, K3)
 on it, and push the warped tensor's gradient to f2 and the flow through the
 plain warp's autograd, as the JAX package leaves that part to XLA. The plain
 version is ``pwcnet_tpu_torch.ops.warp_corr.warp_corr_ref``.
+
+K6p, the same kernel on a halo-extended shard (``_fused_forward(
+rows_prepadded=True)``, entry ``warp_corr_fused_prepadded``), is the second
+entry of ``csrc/warp_corr.cu``; it gathers the corners itself, with the
+global masks and the halo-bound clamp of ``_warp_ext_corners``. Its
+backward is autograd of the plain version ``warp_corr_prepadded_ref``, as
+``_wc_pre_bwd`` differentiates the lax one.
 """
 
 from __future__ import annotations
@@ -19,14 +26,15 @@ import torch
 
 from pwcnet_tpu_torch.ops.kernels.build import load_library
 from pwcnet_tpu_torch.ops.kernels.cost_volume_kernel import (
-    _check_features, cost_volume_bwd_cuda)
+    _check_features, autograd_of, cost_volume_bwd_cuda)
 from pwcnet_tpu_torch.ops.warp import warp_bilinear
 
 SOURCE = "pwcnet_tpu_torch/csrc/warp_corr.cu"
 REPLACES = "pwcnet_tpu/ops/pallas/warp_corr_kernel.py:97"
+PRE_REPLACES = "pwcnet_tpu/ops/pallas/warp_corr_kernel.py:144"
 
-# Kernel launches in this process; the wrapper adds one per launch.
-LAUNCHES = {"warp_corr_fwd": 0}
+# Kernel launches in this process; each wrapper adds one per launch.
+LAUNCHES = {"warp_corr_fwd": 0, "warp_corr_fwd_prepadded": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +46,13 @@ Grads = Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
 def _fwd_fn():
     fn = load_library("warp_corr").pwc_warp_corr_fwd
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def _fwd_pre_fn():
+    fn = load_library("warp_corr").pwc_warp_corr_fwd_prepadded
+    fn.argtypes = [_P, _P, _P, _P] + [_I] * 10 + [_P]
     fn.restype = _I
     return fn
 
@@ -67,6 +82,44 @@ def warp_corr_cuda(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
     if err:
         raise RuntimeError(f"warp_corr kernel launch failed: CUDA error {err}")
     LAUNCHES["warp_corr_fwd"] += 1
+    return out
+
+
+def warp_corr_prepadded_cuda(f1: torch.Tensor, f2e: torch.Tensor,
+                             flow_e: torch.Tensor, row0: int, h_global: int,
+                             halo: int, max_displacement: int = 4
+                             ) -> torch.Tensor:
+    """K6p: ``warp_corr_prepadded_ref`` on one CUDA device. f1 (N, t, W, C);
+    f2e (N, t + 2*halo, W, C), global rows [row0 - halo, row0 + t + halo);
+    f32 flow_e (N, t + 2d, W, 2), rows [row0 - d, row0 + t + d) ->
+    (N, t, W, (2d+1)^2). No autograd: ``warp_corr_prepadded_fn`` is the
+    differentiable entry."""
+    d = max_displacement
+    _check_features(f1, f2e, d, 2 * halo)
+    n, t, w, c = f1.shape
+    if flow_e.device != f1.device or flow_e.dtype != torch.float32:
+        raise TypeError(f"the flow must be f32 on {f1.device}, got "
+                        f"{flow_e.dtype} on {flow_e.device}")
+    if tuple(flow_e.shape) != (n, t + 2 * d, w, 2) \
+            or not flow_e.is_contiguous():
+        raise ValueError(f"flow {tuple(flow_e.shape)}: a contiguous "
+                         f"{(n, t + 2 * d, w, 2)} expected")
+    if not (0 <= row0 and row0 + t <= h_global and halo >= d):
+        raise ValueError(f"row0={row0}, t={t}, h_global={h_global}, "
+                         f"halo={halo}: a shard inside the image with "
+                         "halo >= d expected")
+    out = torch.empty((n, t, w, (2 * d + 1) ** 2), dtype=f1.dtype,
+                      device=f1.device)
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _fwd_pre_fn()(f1.data_ptr(), f2e.data_ptr(), flow_e.data_ptr(),
+                            out.data_ptr(), n, t, w, c, d, t + 2 * halo,
+                            row0, h_global, halo,
+                            int(f1.dtype == torch.bfloat16), stream)
+    if err:
+        raise RuntimeError(f"warp_corr_prepadded kernel launch failed: CUDA "
+                           f"error {err}")
+    LAUNCHES["warp_corr_fwd_prepadded"] += 1
     return out
 
 
@@ -120,3 +173,30 @@ def warp_corr_fn(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
     """The differentiable fused op on CUDA tensors (K6; K2, K3 when autograd
     asks for gradients)."""
     return WarpCorrFunction.apply(f1, f2, flow, max_displacement)
+
+
+class WarpCorrPrepaddedFunction(torch.autograd.Function):
+    """K6p forward; backward through autograd of the plain version."""
+
+    @staticmethod
+    def forward(ctx, f1, f2e, flow_e, row0, h_global, halo, max_displacement):
+        ctx.args = (row0, h_global, halo, max_displacement)
+        ctx.save_for_backward(f1, f2e, flow_e)
+        return warp_corr_prepadded_cuda(f1, f2e, flow_e, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        from pwcnet_tpu_torch.ops.warp_corr import warp_corr_prepadded_ref
+        grads = autograd_of(
+            lambda a, b, f: warp_corr_prepadded_ref(a, b, f, *ctx.args),
+            ctx.saved_tensors, g, ctx.needs_input_grad[:3])
+        return (*grads, None, None, None, None)
+
+
+def warp_corr_prepadded_fn(f1: torch.Tensor, f2e: torch.Tensor,
+                           flow_e: torch.Tensor, row0: int, h_global: int,
+                           halo: int, max_displacement: int = 4
+                           ) -> torch.Tensor:
+    """The differentiable K6p on CUDA tensors."""
+    return WarpCorrPrepaddedFunction.apply(f1, f2e, flow_e, row0, h_global,
+                                           halo, max_displacement)

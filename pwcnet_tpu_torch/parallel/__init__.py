@@ -1,0 +1,22 @@
+"""The port's spatial (image-H) sharding over ``torch.distributed``."""
+
+from pwcnet_tpu_torch.parallel.mesh import (  # noqa: F401
+    DATA_AXIS,
+    MODEL_AXIS,
+    SPATIAL_AXIS,
+    MeshConfig,
+    SpatialMesh,
+    initialize_distributed,
+    make_mesh,
+)
+from pwcnet_tpu_torch.parallel.halo import (  # noqa: F401
+    exchange_halo,
+    exchange_rows,
+    warp_corr_spatial,
+    warp_corr_spatial_local,
+)
+from pwcnet_tpu_torch.parallel.spatial import (  # noqa: F401
+    pad_for_spatial,
+    required_divisor,
+    spatial_forward,
+)

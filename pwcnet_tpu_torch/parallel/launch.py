@@ -1,0 +1,203 @@
+"""Run spatially sharded jobs in one process per rank on this machine.
+
+    python -m pwcnet_tpu_torch.parallel.launch RANK WORLD PORT JOB OUT_DIR
+
+is one rank: it joins a ``torch.distributed`` group of WORLD processes at
+``tcp://localhost:PORT``, makes the spatial mesh, runs the tasks of the job
+file (``torch.save`` of a dict) and writes its results to
+``OUT_DIR/rank<RANK>.pt``. ``run_ranks`` starts all ranks, waits for them
+under one time limit, stops them all if one fails, and returns every rank's
+results.
+
+A job: ``{"backend": "gloo" | "nccl", "device": "cpu" | "cuda" | "cuda:0",
+"threads": int or None, "allow_tf32": bool or None, "tasks": [...]}`` with
+tasks
+- ``{"kind": "exchange", "x": (N, H, ...) tensor, "top": int,
+  "bottom": int}``: ``exchange_rows`` of this rank's rows;
+- ``{"kind": "forward", "model": PWCNet kwargs, "state_dict": ..., "im1":,
+  "im2": global images, "reps": int, "profile": bool}``: ``spatial_forward``
+  once with the kernel launch counts of that call, then ``reps`` timed
+  calls, then (``profile``) one call under ``torch.profiler``: the host
+  operators that take the most time and the device's busy time.
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from typing import List
+
+import torch
+import torch.distributed as dist
+
+_ROOT = Path(__file__).resolve().parents[2]
+
+
+def _kernel_modules():
+    from pwcnet_tpu_torch.ops.kernels import (cost_volume_kernel, stem_kernel,
+                                              warp_corr_kernel)
+    return (cost_volume_kernel, stem_kernel, warp_corr_kernel)
+
+
+def _launches() -> dict:
+    return {k: v for m in _kernel_modules() for k, v in m.LAUNCHES.items()
+            if v}
+
+
+def _forward(task: dict, mesh) -> dict:
+    from pwcnet_tpu_torch import PWCNet
+    from pwcnet_tpu_torch.parallel.spatial import spatial_forward
+    model = PWCNet(device=mesh.device, **task["model"]).eval()
+    model.load_state_dict(task["state_dict"])
+    sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
+            else lambda: None)
+
+    def run():
+        return spatial_forward(model, mesh, task["im1"], task["im2"])
+
+    with torch.inference_mode():
+        sync()
+        for m in _kernel_modules():
+            for k in m.LAUNCHES:
+                m.LAUNCHES[k] = 0
+        flows, full = run()
+        sync()
+        launches = _launches()
+        times = []
+        barrier = (lambda: dist.barrier(mesh.group)) if mesh.size > 1 \
+            else (lambda: None)
+        for _ in range(task.get("reps", 0)):
+            barrier()
+            t0 = time.perf_counter()
+            run()
+            sync()
+            barrier()  # the slowest rank's time
+            times.append((time.perf_counter() - t0) * 1e3)
+        prof = _profile(run, sync, mesh) if task.get("profile") else None
+    return {"flows": [f.cpu() for f in flows], "full": full.cpu(),
+            "launches": launches, "profile": prof,
+            "wall_ms": statistics.median(times) if times else None}
+
+
+def _profile(run, sync, mesh) -> dict:
+    """One call under the profiler: wall ms, the device's busy ms (kernel
+    entries), the host operators' summed self time (the rest of the wall
+    is spent waiting: on the peers, on the device) and the 12 operators
+    with the most self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if mesh.device.type == "cuda" else [])
+    t0 = time.perf_counter()
+    with profile(activities=acts) as prof:
+        run()
+        sync()
+    wall = (time.perf_counter() - t0) * 1e3
+    evs = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in evs
+               if e.device_type == DeviceType.CUDA) / 1e3
+    top = sorted(evs, key=lambda e: -e.self_cpu_time_total)[:12]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "host_ops_ms": sum(e.self_cpu_time_total for e in evs) / 1e3,
+            "host_top": [{"name": e.key[:60], "calls": e.count,
+                          "self_cpu_ms": e.self_cpu_time_total / 1e3}
+                         for e in top]}
+
+
+def worker(rank: int, world: int, port: int, job_path: str,
+           out_dir: str) -> None:
+    from pwcnet_tpu_torch.parallel.halo import exchange_rows
+    from pwcnet_tpu_torch.parallel.mesh import (MeshConfig,
+                                                initialize_distributed,
+                                                make_mesh)
+    from pwcnet_tpu_torch.parallel.spatial import shard_rows
+    job = torch.load(job_path, weights_only=False)
+    if job.get("threads"):
+        torch.set_num_threads(job["threads"])
+    if job.get("allow_tf32") is not None:
+        torch.backends.cudnn.allow_tf32 = job["allow_tf32"]
+        torch.backends.cuda.matmul.allow_tf32 = job["allow_tf32"]
+    initialize_distributed(f"localhost:{port}", world, rank, job["backend"])
+    try:
+        mesh = make_mesh(MeshConfig(spatial=world), backend=job["backend"],
+                         device=job["device"])
+        results = []
+        for task in job["tasks"]:
+            if task["kind"] == "exchange":
+                x = shard_rows(task["x"], mesh).to(mesh.device)
+                results.append(exchange_rows(x, task["top"], task["bottom"],
+                                             mesh).cpu())
+            elif task["kind"] == "forward":
+                results.append(_forward(task, mesh))
+            else:
+                raise ValueError(f"unknown task kind {task['kind']!r}")
+        torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world: int, job: dict, out_dir: str, timeout: float = 600.0
+              ) -> List[list]:
+    """Run ``job`` on ``world`` ranks (one process each); returns each
+    rank's list of task results. Raises if a rank fails or the time limit
+    passes; every process is stopped before it returns or raises."""
+    os.makedirs(out_dir, exist_ok=True)
+    job_path = os.path.join(out_dir, "job.pt")
+    torch.save(job, job_path)
+    port = free_port()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (str(_ROOT), env.get("PYTHONPATH")) if p)
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "pwcnet_tpu_torch.parallel.launch", str(r),
+         str(world), str(port), job_path, out_dir],
+        stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=str(_ROOT))
+        for r in range(world)]
+    deadline = time.monotonic() + timeout
+    failed = None
+
+    def first_failure():
+        bad = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
+        return bad and f"rank {bad[0]} exited with {procs[bad[0]].returncode}"
+
+    try:
+        while failed is None and any(p.poll() is None for p in procs):
+            failed = first_failure() or None
+            if failed is None and time.monotonic() > deadline:
+                failed = f"the ranks did not finish in {timeout} s"
+            time.sleep(0.05)
+        failed = failed or first_failure() or None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        tails = []
+        for r, f in enumerate(logs):
+            f.seek(0)
+            tails.append(f"--- rank {r} ---\n{f.read()[-3000:]}")
+            f.close()
+    if failed:
+        raise RuntimeError(f"spatial job failed: {failed}\n"
+                           + "\n".join(tails))
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+if __name__ == "__main__":
+    worker(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+           sys.argv[5])

@@ -63,7 +63,9 @@ def _check_ported(cfg: Config, dev: torch.device) -> None:
         if p.data == -1 else p.data
     if n_dev * p.spatial * p.model > 1 or (p.num_processes or 1) > 1:
         raise NotImplementedError("a mesh larger than one device needs DDP "
-                                  "(ROADMAP A6) or the spatial path (A7)")
+                                  "(ROADMAP A6); the spatial path runs "
+                                  "inference only (training across shards: "
+                                  "ROADMAP A7)")
     if cfg.train.debug_nans:
         raise NotImplementedError("train.debug_nans is not ported yet "
                                   "(ROADMAP A2)")

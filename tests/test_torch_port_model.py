@@ -110,8 +110,11 @@ def test_forward_rejects_non_divisible_size():
         model(im, im)
 
 
-@pytest.mark.parametrize("kwargs", [dict(spatial_axis="spatial"),
-                                    dict(use_norm=True)])
+@pytest.mark.parametrize("kwargs", [
+    # The spatial path is ported (tests/test_torch_port_spatial.py), but
+    # only with half-pixel upsampling.
+    dict(spatial_axis="spatial", resize_mode="align_corners"),
+    dict(use_norm=True)])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         PWCNet(device="cpu", **kwargs)
