@@ -23,36 +23,43 @@
 // Bound on an H100 SXM: 2 * 9 * Ci flops per output value, at most 576 at
 // Ci = 32, against (Ci / s^2 + Co) input and output values per pixel: about
 // 10 flops a byte in bf16, far below the tensor cores' 295, so the bytes over
-// 3.35 TB/s bound it. Design: one thread per output pixel and group of COT
-// output channels, whose sums stay in registers; the block's 128 threads
-// take 128 neighbouring columns of one output row and the same channel
-// group, so every weight read from shared memory is a broadcast. Neighbouring
-// threads read overlapping input columns, which the L1 cache serves.
+// 3.35 TB/s bound it. Design, bf16: the implicit GEMM of conv3x3_mma.cuh on
+// the tensor cores (mma.sync m16n8k16, f32 sums): a block stages its input
+// tile of 8 (stride 1) or 4 (stride 2) output rows x 64 columns once with
+// 16-byte copies, every output channel of the tile comes from that one copy
+// (up to 32 per block), and the outputs leave in 16-byte stores. The tile
+// stages at most 64 input channels; above that a bf16 conv, like every f32
+// one (held to 1e-5, so no TF32), runs on the CUDA cores: one thread per
+// output pixel and group of COT output channels, sums in registers, every
+// weight read from shared memory a broadcast.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "conv3x3_mma.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;  // output columns per block
-constexpr int COT = 16;       // output channels per thread
-constexpr int MAX_W = 12288;  // weights in shared memory (48 KB of f32)
+constexpr int THREADS = 128;  // CUDA cores: output columns per block
+constexpr int COT = 16;       // CUDA cores: output channels per thread
+constexpr int MAX_W = 12288;  // 9 * ci * co: f32 weights in shared memory
+constexpr int TILE_CI = 64;   // input channels the bf16 tile stages
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+__device__ __forceinline__ float load_f32(const c3::bf16* p) {
   return __bfloat162float(*p);
 }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ void store(c3::bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-conv3x3(const T* __restrict__ x, const float* __restrict__ w,
-        const float* __restrict__ b, T* __restrict__ out, int H, int W,
-        int CI, int HO, int WO, int CO, int stride, int pt, int pl,
-        float slope, int has_slope) {
+conv3x3_cc(const T* __restrict__ x, const float* __restrict__ w,
+           const float* __restrict__ b, T* __restrict__ out, int H, int W,
+           int CI, int HO, int WO, int CO, int stride, int pt, int pl,
+           float slope, int has_slope) {
   extern __shared__ float ws[];  // [ky][kx][ci][co], as w
   const int nw = 9 * CI * CO;
   for (int i = threadIdx.x; i < nw; i += THREADS) ws[i] = w[i];
@@ -99,34 +106,71 @@ conv3x3(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+template <typename T>
+cudaError_t launch_cc(const T* x, const float* w, const float* b, T* out,
+                      int n, int h, int wd, int ci, int ho, int wo, int co,
+                      int stride, int pt, int pl, float slope, int has_slope,
+                      cudaStream_t s) {
+  const long long blocks =
+      static_cast<long long>((wo + THREADS - 1) / THREADS) * n * ho;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks), (co + COT - 1) / COT);
+  const size_t smem = static_cast<size_t>(9) * ci * co * sizeof(float);
+  conv3x3_cc<T><<<grid, THREADS, smem, s>>>(x, w, b, out, h, wd, ci, ho, wo,
+                                            co, stride, pt, pl, slope,
+                                            has_slope);
+  return cudaGetLastError();
+}
+
+// Stride 1: 8 output rows per block; stride 2: 4 (a quarter of the input
+// rows per output row). 16 or 32 output channels per block.
+template <int S, bool TAPS>
+cudaError_t launch_bf16(const c3::bf16* x, const float* w, const c3::Conv& cv,
+                        c3::bf16* out, const c3::BiasAct& epi,
+                        cudaStream_t s) {
+  constexpr int R = S == 1 ? 8 : 4;
+  const c3::WView wv = c3::hwio(cv.ci, cv.co);
+  return cv.co <= 16
+             ? c3::launch_conv<S, R, 2, TAPS>(x, w, wv, cv, out, epi, s)
+             : c3::launch_conv<S, R, 4, TAPS>(x, w, wv, cv, out, epi, s);
+}
+
 }  // namespace
 
-// x: (n, h, w, ci) contiguous, bf16 when is_bf16, else f32; w: (3, 3, ci, co)
-// f32 holding values rounded to x's type; b: (co,) f32; out: (n, ho, wo, co)
-// in x's type. pt, pl: the SAME padding before (rows, columns). slope is used
-// when has_slope. Needs 9 * ci * co <= 12288. Returns the CUDA error.
+// x: (n, h, w, ci) contiguous, bf16 when is_bf16 (then 16-byte aligned),
+// else f32; w: (3, 3, ci, co) f32 holding values rounded to x's type; b:
+// (co,) f32; out: (n, ho, wo, co) in x's type. pt, pl: the SAME padding
+// before (rows, columns). slope is used when has_slope. Needs 9 * ci * co <=
+// 12288. Returns the CUDA error.
 extern "C" int pwc_conv_folded_fwd(const void* x, const void* w,
                                    const void* b, void* out, int n, int h,
                                    int wd, int ci, int ho, int wo, int co,
                                    int stride, int pt, int pl, float slope,
                                    int has_slope, int is_bf16, void* stream) {
-  const long long blocks =
-      static_cast<long long>((wo + THREADS - 1) / THREADS) * n * ho;
-  if (9 * ci * co > MAX_W || blocks > 0x7fffffffLL)
+  if (9 * ci * co > MAX_W || (stride != 1 && stride != 2))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(static_cast<unsigned>(blocks), (co + COT - 1) / COT);
-  const size_t smem = static_cast<size_t>(9) * ci * co * sizeof(float);
   const float* wf = static_cast<const float*>(w);
   const float* bf = static_cast<const float*>(b);
-  if (is_bf16)
-    conv3x3<__nv_bfloat16><<<grid, THREADS, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), wf, bf,
-        static_cast<__nv_bfloat16*>(out), h, wd, ci, ho, wo, co, stride, pt,
-        pl, slope, has_slope);
+  if (!is_bf16)
+    return static_cast<int>(launch_cc(
+        static_cast<const float*>(x), wf, bf, static_cast<float*>(out), n, h,
+        wd, ci, ho, wo, co, stride, pt, pl, slope, has_slope, s));
+  const auto* xb = static_cast<const c3::bf16*>(x);
+  auto* ob = static_cast<c3::bf16*>(out);
+  if (ci > TILE_CI)
+    return static_cast<int>(launch_cc(xb, wf, bf, ob, n, h, wd, ci, ho, wo,
+                                      co, stride, pt, pl, slope, has_slope,
+                                      s));
+  const c3::Conv cv{n, h, wd, ci, ho, wo, co, pt, pl};
+  const c3::BiasAct epi{bf, slope, has_slope};
+  const bool taps = ci % 16 == 0;
+  cudaError_t e;
+  if (stride == 1)
+    e = taps ? launch_bf16<1, true>(xb, wf, cv, ob, epi, s)
+             : launch_bf16<1, false>(xb, wf, cv, ob, epi, s);
   else
-    conv3x3<float><<<grid, THREADS, smem, s>>>(
-        static_cast<const float*>(x), wf, bf, static_cast<float*>(out), h, wd,
-        ci, ho, wo, co, stride, pt, pl, slope, has_slope);
-  return static_cast<int>(cudaGetLastError());
+    e = taps ? launch_bf16<2, true>(xb, wf, cv, ob, epi, s)
+             : launch_bf16<2, false>(xb, wf, cv, ob, epi, s);
+  return static_cast<int>(e);
 }

@@ -35,6 +35,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "conv3x3_mma.cuh"
+
 namespace {
 
 constexpr int TH2 = 8;   // level-2 output rows per block
@@ -185,7 +187,37 @@ stem_fwd(const T* __restrict__ im, const float* __restrict__ w1,
 // Backward (K5). Replaces pwcnet_tpu/ops/pallas/stem_kernel.py,
 // _stem_bwd_kernel (launched by _stem_backward_pallas; the VJP of
 // stem_pallas). A recompute backward: the residuals are only the image and
-// the weights. One block per level-2 tile of BH2 x BW2 pixels recomputes the
+// the weights. With m = LeakyReLU' (1 where the activation is > 0, else
+// 0.1, as torch's leaky_relu backward takes it) and y_l the output of conv l:
+//   p4 = g * m(z4), p3 = conv4^T(p4) * m(y3), p2 = conv3^T(p3) * m(y2),
+//   p1 = conv2^T(p2) * m(y1), d_im = conv1^T(p1),
+//   dW_l = sum over pixels of (input patch of conv l) x p_l, db_l = sum p_l.
+//
+// bf16, the train step's form: layer by layer on the tensor cores, every
+// intermediate in device memory in bf16 (y_l are bf16 in the forward
+// already, so storing them is exact; p_l is rounded to bf16 before it
+// enters a product, as the plain version's bf16 autograd rounds it; sums
+// are f32). 13 kernels (14 with d_im), launch_bwd_bf16 below:
+//   1. the weights, OIHW -> HWIO, rounded to bf16 (pack_params);
+//   2-5. conv1..conv4 of conv3x3_mma.cuh, writing y1, y2, y3, and for conv4
+//        p4 straight from its sums (y4 is never needed);
+//   6, 8. p3, p1: the stride-1 input gradients are 3x3 convs of p with the
+//        weights flipped and transposed, the same tile with an epilogue that
+//        multiplies by m(y);
+//   7. p2: conv3's stride-2 input gradient, split by output parity
+//        (conv3x3_t2); 14: d_im, the same for conv1;
+//   9-12. dW_l, db_l: per layer a GEMM (M = Ci per tap, N = Co, K =
+//        pixels) over a fixed split of the pixels (wg_blocks(l) blocks,
+//        each summing its tiles in order into one row of partials);
+//   13. the fixed-order reduction of the rows, which writes the gradients
+//        in OIHW rounded to bf16. No atomics, so the gradients are the same
+//        from run to run.
+// Bound: every layer's activations and gradients cross device memory about
+// three times (about 0.45 GB at 16 x 384x448), which bounds it; the
+// products (3 x the forward's, on the tensor cores) do not.
+//
+// f32 (a correctness path, held to 1e-4 against the plain version): one
+// fused kernel. One block per level-2 tile of BH2 x BW2 pixels recomputes the
 // forward over the tile's halo regions (the same conv_layer calls as
 // stem_fwd, so the same rounded values and the same masks), then walks the
 // chain back with the incoming gradient restricted to its own tile:
@@ -194,20 +226,13 @@ stem_fwd(const T* __restrict__ im, const float* __restrict__ w1,
 //   G2 = conv3^T(p3), p2 = G2 * m2      on its level-1 region
 //   G1 = conv2^T(p2), p1 = G1 * m1      on its level-1 halo region
 //   d_im = conv1^T(p1)                  on its image region
-// with m = LeakyReLU' (1 where the activation is > 0, else 0.1, as torch's
-// leaky_relu backward takes it) times the forward's valid-extent mask.
-// dW_l = sum over the region of (input patch) x p_l and db_l = sum of p_l.
-// The chain is linear in g, so summing the tiles' contributions gives the
-// exact gradient: that is the JAX kernel's overlap-add. Each tile writes its
-// dW/db sums (f32, HWIO) to its own row of a partials buffer and its d_im
-// region to its own block; two more kernels reduce the partials over the
-// tiles and overlap-add the d_im blocks, each in a fixed order, so the
-// gradients are the same run to run (no atomics).
-//
-// Bound: about three times the forward's work (forward, then two products
-// per layer) plus the d_im blocks and dW partials in f32; the recompute of
-// the halo regions and the f32 CUDA-core FMAs put this first version far
-// above it (measured time in PERF.md).
+// with m times the forward's valid-extent mask. The chain is linear in g,
+// so summing the tiles' contributions gives the exact gradient: that is the
+// JAX kernel's overlap-add. Each tile writes its dW/db sums (f32, HWIO) to
+// its own row of a partials buffer and its d_im region to its own block;
+// two more kernels reduce the partials over the tiles and overlap-add the
+// d_im blocks, each in a fixed order (no atomics). The recompute of the halo
+// regions and the f32 CUDA-core FMAs put it far above the bound.
 // ---------------------------------------------------------------------------
 
 constexpr int BH2 = 4, BW2 = 16;  // level-2 tile of the backward
@@ -496,34 +521,434 @@ __global__ void overlap_add(const float* __restrict__ blocks,
   }
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* im, const void* gout,
-                       const float* const* wb, const float* const* wt,
-                       float* partials, float* grads, float* dim_blocks,
-                       void* dim, int n, int h, int w, cudaStream_t stream) {
+cudaError_t launch_bwd_f32(const float* im, const float* gout,
+                           const float* const* wb, const float* const* wt,
+                           float* partials, float* grads, float* dim_blocks,
+                           float* dim, int n, int h, int w,
+                           cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      stem_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stem_bwd<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(BWD_SMEM_BYTES));
   if (e != cudaSuccess) return e;
   const int tiles_h = (h / 4 + BH2 - 1) / BH2;
   const int tiles_w = (w / 4 + BW2 - 1) / BW2;
   const dim3 grid(tiles_w, tiles_h, n);
-  stem_bwd<T><<<grid, BTHREADS, BWD_SMEM_BYTES, stream>>>(
-      static_cast<const T*>(im), static_cast<const T*>(gout), wb[0], wb[1],
-      wb[2], wb[3], wb[4], wb[5], wb[6], wb[7], wt[0], wt[1], wt[2], wt[3],
-      partials, dim_blocks, h, w);
+  stem_bwd<float><<<grid, BTHREADS, BWD_SMEM_BYTES, stream>>>(
+      im, gout, wb[0], wb[1], wb[2], wb[3], wb[4], wb[5], wb[6], wb[7], wt[0],
+      wt[1], wt[2], wt[3], partials, dim_blocks, h, w);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const int ntiles = n * tiles_h * tiles_w;
   reduce_partials<<<(N_GRAD + 31) / 32, dim3(32, TH_R), 0, stream>>>(
       partials, grads, ntiles);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if (dim_blocks != nullptr) {
-    overlap_add<T><<<1024, 256, 0, stream>>>(
-        dim_blocks, static_cast<T*>(dim), n, h, w, tiles_h, tiles_w);
+    overlap_add<float><<<1024, 256, 0, stream>>>(dim_blocks, dim, n, h, w,
+                                                 tiles_h, tiles_w);
     e = cudaGetLastError();
   }
   return e;
 }
+
+// ---- The bf16 backward, layer by layer -----------------------------------
+
+using c3::bf16;
+using c3::Conv;
+using c3::TW;
+using c3::MT;
+
+// Stride-2 transposed conv, the input gradient of the stride-2 conv cv from
+// p (n, cv.ho, cv.wo, cv.co), cv.co % 16 == 0, and the conv's HWIO weights
+// w: out[n, j, i, c] = epi(sum of p[n, oy, ox, o] * w[ky, kx, c, o] over o
+// and the taps with j = 2 oy - pt + ky and i = 2 ox - pl + kx), out (n,
+// cv.h, cv.w, cv.ci) bf16. Split by
+// output parity: output columns of one parity share their taps (ky with
+// j + pt - ky even: 1 or 2; kx likewise), so warp (row r, parity q) of a
+// block takes the 64 columns i0 + 2u + q (u < 64) of output row j0 + r as
+// m16 tiles over 64 consecutive pixels of p, and each of its 1, 2 or 4 taps
+// is a product with that tap's weights. SAME's (0, 1) stride-2 padding
+// enters only through pt, pl.
+template <int NT, int RJ>
+struct T2 {
+  static constexpr int PR = RJ / 2 + 2, PC = TW + 2;  // p tile rows, cols
+  static size_t smem(int co) {
+    const size_t w = static_cast<size_t>(9 * co / 16) * NT * 32 * sizeof(uint2);
+    const size_t tile = static_cast<size_t>(PR) * PC * (co + 8) * sizeof(bf16);
+    const size_t stage = static_cast<size_t>(RJ) * 2 * TW *
+                         c3::stage_pitch<NT>() * sizeof(float);
+    return w + (tile > stage ? tile : stage);
+  }
+};
+
+template <int NT, int RJ, class Epi>
+__global__ void __launch_bounds__(64 * RJ)
+conv3x3_t2(const bf16* __restrict__ p, const float* __restrict__ w, Conv cv,
+           bf16* __restrict__ out, Epi epi) {
+  using Geo = T2<NT, RJ>;
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  const int steps = cv.co / 16, ks = 9 * steps, pitch = cv.co + 8;
+  uint2* wf = reinterpret_cast<uint2*>(dyn_smem);
+  bf16* tile = reinterpret_cast<bf16*>(wf + ks * NT * 32);
+  float* stage = reinterpret_cast<float*>(tile);
+  const int img = blockIdx.z, j0 = blockIdx.y * RJ, i0 = blockIdx.x * 2 * TW;
+  const int oy0 = j0 / 2 - 1, ox0 = i0 / 2 - 1;  // the p tile's origin
+  c3::stage_vec<false>(p, img, cv.ho, cv.wo, cv.co, oy0, ox0, Geo::PR, Geo::PC,
+                       Geo::PC, 0, pitch, tile);
+  c3::stage_weights(w, c3::hwio_t(cv.co, cv.ci, 0), cv.co, cv.ci, 0, ks, NT,
+                    wf);
+  c3::cp_async_wait_all();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = warp >> 1, q = warp & 1, j = j0 + r;
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mt][nt][v] = 0.f;
+  for (int ky = (j + cv.pt) & 1; ky < 3; ky += 2) {
+    const int py = (j + cv.pt - ky) / 2 - oy0;  // exact: the sum is even
+    for (int kx = (q + cv.pl) & 1; kx < 3; kx += 2) {
+      const int px = (q + cv.pl - kx) / 2 + 1;
+      const bf16* row = tile + (py * Geo::PC + px + c3::a_row(lane)) * pitch +
+                        c3::a_k(lane);
+      for (int cc = 0; cc < steps; ++cc) {
+        const int s = (ky * 3 + kx) * steps + cc;
+        uint2 b[NT];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) b[nt] = wf[(s * NT + nt) * 32 + lane];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t a[4];
+          c3::ldsm_x4(a, row + mt * 16 * pitch + cc * 16);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            c3::mma(acc[mt][nt], a, b[nt].x, b[nt].y);
+        }
+      }
+    }
+  }
+  __syncthreads();  // the sums overwrite the tile
+  c3::stage_acc<NT>(acc, stage, r * 2 * TW + q, 2);
+  __syncthreads();
+  c3::store_tile<NT>(stage, RJ, 2 * TW, img, j0, i0, cv.h, cv.w, cv.ci, 0,
+                     out, epi);
+}
+
+template <int NT, class Epi>
+cudaError_t launch_t2(const bf16* p, const float* w, const Conv& cv,
+                      bf16* out, const Epi& epi, cudaStream_t stream) {
+  constexpr int RJ = 4;
+  const size_t smem = T2<NT, RJ>::smem(cv.co);
+  if (cv.co % 16 || cv.ci > NT * 8 || smem > c3::MAX_SMEM)
+    return cudaErrorInvalidValue;
+  auto kernel = conv3x3_t2<NT, RJ, Epi>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(c3::cdiv(cv.w, 2 * TW), c3::cdiv(cv.h, RJ), cv.n);
+  kernel<<<grid, 64 * RJ, smem, stream>>>(p, w, cv, out, epi);
+  return cudaGetLastError();
+}
+
+// The weight and bias gradients of the conv cv (CI -> CO channels, stride
+// S) from its input x and the gradient p at its output (pre-activation):
+//   dw[tap][c][o] = sum over output pixels of x[n, S oy - pt + ky,
+//                   S ox - pl + kx, c] * p[n, oy, ox, o],  db[o] = sum p.
+// Per tap a GEMM with M = CI, N = CO, K = pixels: warp `tap` of a block of
+// 9 warps takes one tap. Block b of B sums the tiles (WG_R output rows x 64
+// columns) b, b + B, ... in that order in registers and writes its sums to
+// row b of part (dw in HWIO, then db): a fixed split, reduced in a fixed
+// order afterwards. A = x^T and B = p are read with ldmatrix.trans from
+// pixel-major tiles (x element by element when CI is not a multiple of 16:
+// the image); db is the product of p with an A of ones.
+constexpr int WG_R = 4;
+
+template <int S, int CI, int CO>
+struct WGrad {
+  using T = c3::InTile<S, WG_R, CI % 16 == 0>;
+  static constexpr int XP = T::pitch(CI), PP = CO + 8;
+  static constexpr int X_ELEMS = (T::ROWS * T::SCOLS * XP + 7) / 8 * 8;
+  static constexpr size_t SMEM = (X_ELEMS + WG_R * TW * PP) * sizeof(bf16);
+};
+
+template <int S, int CI, int CO>
+__global__ void __launch_bounds__(9 * 32)
+wgrad(const bf16* __restrict__ x, const bf16* __restrict__ p, Conv cv,
+      float* __restrict__ part) {
+  using Geo = WGrad<S, CI, CO>;
+  using T = typename Geo::T;
+  constexpr bool TAPS = CI % 16 == 0;
+  constexpr int MTW = (CI + 15) / 16, NTW = CO / 8;
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  bf16* xtile = reinterpret_cast<bf16*>(dyn_smem);
+  bf16* ptile = xtile + Geo::X_ELEMS;
+  const int tap = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, ky = tap / 3, kx = tap % 3;
+  const int xb = c3::cdiv(cv.wo, TW), yb = c3::cdiv(cv.ho, WG_R);
+  const int tiles = cv.n * yb * xb;
+  float acc[MTW][NTW][4], accb[NTW][4];
+#pragma unroll
+  for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      accb[nt][v] = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MTW; ++mt) acc[mt][nt][v] = 0.f;
+    }
+  const uint32_t ones[4] = {0x3f803f80u, 0x3f803f80u, 0x3f803f80u,
+                            0x3f803f80u};  // bf16 1.0 pairs
+
+  for (int tl = blockIdx.x; tl < tiles; tl += gridDim.x) {
+    const int img = tl / (yb * xb);
+    const int oy0 = (tl / xb) % yb * WG_R, ox0 = tl % xb * TW;
+    if constexpr (TAPS)
+      c3::stage_vec<T::DEINT>(x, img, cv.h, cv.w, CI, S * oy0 - cv.pt,
+                              S * ox0 - cv.pl, T::ROWS, T::COLS, T::SCOLS,
+                              T::HALF, Geo::XP, xtile);
+    else
+      c3::stage_scalar(x, img, cv.h, cv.w, CI, S * oy0 - cv.pt,
+                       S * ox0 - cv.pl, T::ROWS, T::COLS, xtile);
+    c3::stage_vec<false>(p, img, cv.ho, cv.wo, CO, oy0, ox0, WG_R, TW, TW, 0,
+                         Geo::PP, ptile);
+    c3::cp_async_wait_all();
+    __syncthreads();
+    for (int r = 0; r < WG_R; ++r)
+      for (int kb = 0; kb < TW; kb += 16) {
+        // B[k][o] = p(pixel kb + k)[o]: matrices (pixels 0-7 / 8-15) x
+        // (channels 0-7 / 8-15) give b0, b1 of two n8 tiles.
+        uint32_t b[NTW][2];
+#pragma unroll
+        for (int h = 0; h < NTW / 2; ++h) {
+          uint32_t m[4];
+          c3::ldsm_x4_t(m, ptile + (r * TW + kb + c3::a_row(lane)) * Geo::PP +
+                               h * 16 + c3::a_k(lane));
+          b[2 * h][0] = m[0];
+          b[2 * h][1] = m[1];
+          b[2 * h + 1][0] = m[2];
+          b[2 * h + 1][1] = m[3];
+        }
+#pragma unroll
+        for (int mt = 0; mt < MTW; ++mt) {
+          uint32_t a[4];
+          if constexpr (TAPS) {
+            // A[c][k] = x(pixel kb + k shifted by the tap)[c]: matrices
+            // (pixels 0-7, channels 0-7 / 8-15), (pixels 8-15, ...) give
+            // a0, a1, a2, a3.
+            const int k = kb + (lane & 7) + (lane >> 4) * 8;
+            const int slot = T::DEINT ? (kx & 1) * T::HALF + k + (kx >> 1)
+                                      : S * k + kx;
+            c3::ldsm_x4_t(a, xtile +
+                                 ((S * r + ky) * T::SCOLS + slot) * Geo::XP +
+                                 mt * 16 + ((lane >> 3) & 1) * 8);
+          } else {
+            // Rows c = g < CI of A; a1, a3 (rows 8-15) are 0.
+            const uint16_t* xr = reinterpret_cast<const uint16_t*>(xtile) +
+                                 ((S * r + ky) * T::COLS + kx) * CI + g;
+            uint32_t v[4] = {0u, 0u, 0u, 0u};
+            if (g < CI) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i)
+                v[i] = xr[S * (kb + 2 * t + (i & 1) + (i >> 1) * 8) * CI];
+            }
+            a[0] = v[0] | (v[1] << 16);
+            a[1] = 0u;
+            a[2] = v[2] | (v[3] << 16);
+            a[3] = 0u;
+          }
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt)
+            c3::mma(acc[mt][nt], a, b[nt][0], b[nt][1]);
+        }
+        if (tap == 0) {
+#pragma unroll
+          for (int nt = 0; nt < NTW; ++nt)
+            c3::mma(accb[nt], ones, b[nt][0], b[nt][1]);
+        }
+      }
+    __syncthreads();
+  }
+
+  // c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g + 8.
+  constexpr int NW = 9 * CI * CO;
+  float* dst = part + static_cast<size_t>(blockIdx.x) * (NW + CO);
+#pragma unroll
+  for (int mt = 0; mt < MTW; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int c = mt * 16 + g + 8 * hh, o = nt * 8 + 2 * t;
+        if (c < CI) {
+          float* d = dst + (tap * CI + c) * CO + o;
+          d[0] = acc[mt][nt][2 * hh];
+          d[1] = acc[mt][nt][2 * hh + 1];
+        }
+      }
+  if (tap == 0 && g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < NTW; ++nt) {
+      dst[NW + nt * 8 + 2 * t] = accb[nt][0];
+      dst[NW + nt * 8 + 2 * t + 1] = accb[nt][1];
+    }
+  }
+}
+
+template <int S, int CI, int CO>
+cudaError_t launch_wgrad(const bf16* x, const bf16* p, const Conv& cv,
+                         int blocks, float* part, cudaStream_t stream) {
+  constexpr size_t smem = WGrad<S, CI, CO>::SMEM;
+  static_assert(smem <= c3::MAX_SMEM, "wgrad tiles must fit 227 KB");
+  auto kernel = wgrad<S, CI, CO>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks, 9 * 32, smem, stream>>>(x, p, cv, part);
+  return cudaGetLastError();
+}
+
+// Blocks of each layer's weight-gradient split (conv1..conv4): as many as
+// its tiles keep resident on the 132 SMs of an H100 (7, 4, 2, 2 per SM; the
+// larger layers hold larger partial rows and tiles). Fixed, so the sums do
+// not depend on the card.
+__host__ __device__ constexpr int wg_blocks(int l) {
+  return l == 0 ? 924 : l == 1 ? 528 : 264;
+}
+__host__ __device__ constexpr int wg_in(int l) {
+  return l == 0 ? CIN : l < 3 ? C1 : C2;
+}
+__host__ __device__ constexpr int wg_out(int l) { return l < 2 ? C1 : C2; }
+// A partial row of layer l: dW (HWIO), then db.
+__host__ __device__ constexpr int wg_row(int l) {
+  return 9 * wg_in(l) * wg_out(l) + wg_out(l);
+}
+// Where layer l's rows start in the partials; wg_base(4): their size.
+__host__ __device__ constexpr int wg_base(int l) {
+  int base = 0;
+  for (int i = 0; i < l; ++i) base += wg_blocks(i) * wg_row(i);
+  return base;
+}
+
+// grads[e], OIHW per layer in the order of N_GRAD (dW1, db1, ..., dW4,
+// db4), = the sum over the layer's partial rows (HWIO, then db) in the
+// order of the rows, rounded to bf16. Lanes run over a row's elements; the
+// TH_R warps of a block take every TH_R-th row, then warp 0 adds their sums
+// in a fixed order.
+__global__ void __launch_bounds__(32 * TH_R)
+reduce_wgrad(const float* __restrict__ partials, float* __restrict__ grads) {
+  __shared__ float s[TH_R][32];
+  int l = 0, j = blockIdx.x * 32 + threadIdx.x;  // element j of layer l
+  while (l < 4 && j >= wg_row(l)) j -= wg_row(l++);
+  float acc = 0.f;
+  if (l < 4) {
+    const float* src = partials + wg_base(l) + j;
+    for (int r = threadIdx.y; r < wg_blocks(l); r += TH_R)
+      acc += src[static_cast<size_t>(r) * wg_row(l)];
+  }
+  s[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y != 0 || l == 4) return;
+  float sum = 0.f;
+  for (int i = 0; i < TH_R; ++i) sum += s[i][threadIdx.x];
+  const int ci = wg_in(l), co = wg_out(l), nw = 9 * ci * co;
+  int off = 0;  // the layer's offset in grads
+  for (int i = 0; i < l; ++i) off += wg_row(i);
+  const int tap = j / (ci * co), c = j / co % ci, o = j % co;
+  grads[off + (j < nw ? (o * ci + c) * 9 + tap : j)] =
+      __bfloat162float(__float2bfloat16_rn(sum));
+}
+
+// Elements of the bf16 scratch: y1, y2, p1, p2 at level 1, y3, p3, p4 at
+// level 2.
+size_t bwd_bf16_scratch(int n, int h, int w) {
+  return static_cast<size_t>(n) * (4 * (h / 2) * (w / 2) * C1 +
+                                   3 * (h / 4) * (w / 4) * C2);
+}
+
+#define CHECK(call)                        \
+  do {                                     \
+    const cudaError_t err_ = (call);       \
+    if (err_ != cudaSuccess) return err_;  \
+  } while (0)
+
+// out = params (w1 OIHW, b1, ..., w4, b4, f32, in the layout of grads) with
+// each weight HWIO, every value rounded to bf16.
+__global__ void pack_params(const float* __restrict__ params,
+                            float* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= N_GRAD) return;
+  int l = 0, j = e;
+  while (j >= wg_row(l)) j -= wg_row(l++);
+  const int ci = wg_in(l), co = wg_out(l);
+  int dst = e;  // the biases keep their place
+  if (j < 9 * ci * co)  // OIHW j = (o * ci + c) * 9 + tap -> HWIO
+    dst += (j % 9 * ci + j / 9 % ci) * co + j / (9 * ci) - j;
+  out[dst] = __bfloat162float(__float2bfloat16_rn(params[e]));
+}
+
+// params: the OIHW weights and the biases, f32, in the order and layout of
+// grads; partials holds wg_base(4) + N_GRAD f32, the last N_GRAD for them
+// packed by pack_params.
+cudaError_t launch_bwd_bf16(const bf16* im, const bf16* g,
+                            const float* params, bf16* scratch,
+                            float* partials, float* grads, bf16* dim, int n,
+                            int h, int w, cudaStream_t st) {
+  float* wb = partials + wg_base(4);
+  pack_params<<<(N_GRAD + 255) / 256, 256, 0, st>>>(params, wb);
+  const int h1 = h / 2, w1 = w / 2, h2 = h / 4, w2 = w / 4;
+  const size_t s1 = static_cast<size_t>(n) * h1 * w1 * C1;
+  const size_t s2 = static_cast<size_t>(n) * h2 * w2 * C2;
+  bf16 *y1 = scratch, *y2 = y1 + s1, *p1 = y2 + s1, *p2 = p1 + s1;
+  bf16 *y3 = p2 + s1, *p3 = y3 + s2, *p4 = p3 + s2;
+  const float *w1_ = wb + OFF_W1, *w2_ = wb + OFF_W2, *w3_ = wb + OFF_W3,
+              *w4_ = wb + OFF_W4;
+  const Conv c1{n, h, w, CIN, h1, w1, C1, c3::same_pad(h, 2),
+                c3::same_pad(w, 2)};
+  const Conv c2{n, h1, w1, C1, h1, w1, C1, 1, 1};
+  const Conv c3v{n, h1, w1, C1, h2, w2, C2, c3::same_pad(h1, 2),
+                 c3::same_pad(w1, 2)};
+  const Conv c4{n, h2, w2, C2, h2, w2, C2, 1, 1};
+  const c3::BiasAct act1{wb + OFF_B1, 0.1f, 1}, act2{wb + OFF_B2, 0.1f, 1},
+      act3{wb + OFF_B3, 0.1f, 1};
+  // The forward, and p4 from conv4's sums.
+  CHECK(cudaGetLastError());
+  CHECK((c3::launch_conv<2, 4, 2, false>(im, w1_, c3::hwio(CIN, C1), c1, y1,
+                                         act1, st)));
+  CHECK((c3::launch_conv<1, 8, 2, true>(y1, w2_, c3::hwio(C1, C1), c2, y2,
+                                        act2, st)));
+  CHECK((c3::launch_conv<2, 4, 4, true>(y2, w3_, c3::hwio(C1, C2), c3v, y3,
+                                        act3, st)));
+  CHECK((c3::launch_conv<1, 8, 4, true>(y3, w4_, c3::hwio(C2, C2), c4, p4,
+                                        c3::BiasLreluGrad{wb + OFF_B4, g},
+                                        st)));
+  // The input gradients: conv4 and conv2 (stride 1) as convs with flipped,
+  // transposed weights; conv3 by output parity.
+  CHECK((c3::launch_conv<1, 8, 4, true>(p4, w4_, c3::hwio_t(C2, C2, 1), c4,
+                                        p3, c3::LreluMask{y3}, st)));
+  CHECK((launch_t2<2>(p3, w3_, c3v, p2, c3::LreluMask{y2}, st)));
+  CHECK((c3::launch_conv<1, 8, 2, true>(p2, w2_, c3::hwio_t(C1, C1, 1), c2,
+                                        p1, c3::LreluMask{y1}, st)));
+  // The weight and bias gradients, then their fixed-order reduction.
+  CHECK((launch_wgrad<2, CIN, C1>(im, p1, c1, wg_blocks(0),
+                                  partials + wg_base(0), st)));
+  CHECK((launch_wgrad<1, C1, C1>(y1, p2, c2, wg_blocks(1),
+                                 partials + wg_base(1), st)));
+  CHECK((launch_wgrad<2, C1, C2>(y2, p3, c3v, wg_blocks(2),
+                                 partials + wg_base(2), st)));
+  CHECK((launch_wgrad<1, C2, C2>(y3, p4, c4, wg_blocks(3),
+                                 partials + wg_base(3), st)));
+  reduce_wgrad<<<(N_GRAD + 31) / 32, dim3(32, TH_R), 0, st>>>(partials,
+                                                               grads);
+  CHECK(cudaGetLastError());
+  if (dim != nullptr)
+    CHECK((launch_t2<1>(p1, w1_, c1, dim, c3::Identity{}, st)));
+  return cudaSuccess;
+}
+
+#undef CHECK
 
 template <typename T>
 cudaError_t launch(const void* im, const float* const* wb, void* out, int n,
@@ -565,25 +990,31 @@ extern "C" int pwc_stem_fwd(const void* im, const void* w1, const void* b1,
 // dW2, db2, dW3, db3, dW4, db4, in that order.
 extern "C" int pwc_stem_bwd_grad_size() { return N_GRAD; }
 
-// Tiles of the backward: partials has (n * tiles) rows of the size above,
-// dim_blocks (n * tiles) blocks of (4*4 + 15) * (4*16 + 15) * 3 f32.
+// The f32 backward's tiles: partials has (n * tiles) rows of the size
+// above, dim_blocks (n * tiles) blocks of (4*4 + 15) * (4*16 + 15) * 3 f32.
 extern "C" int pwc_stem_bwd_tiles(int n, int h, int w) {
   return n * ((h / 4 + BH2 - 1) / BH2) * ((w / 4 + BW2 - 1) / BW2);
 }
 extern "C" int pwc_stem_bwd_block_size() { return B_IMG_N * CIN; }
 
-// im: (n, h, w, 3), gout: (n, h/4, w/4, 32), dim: like im; contiguous, bf16
-// when is_bf16 else f32. w1..b4 as for pwc_stem_fwd; wt1..wt4: the weights
-// as [ky][kx][co][ci] f32. partials, grads, dim_blocks: f32 scratch and
-// output of the sizes above. dim_blocks and dim may both be null: then d_im
-// is not computed. Returns the CUDA error.
+// The bf16 backward's scratch: bf16 elements, and f32 partial sums.
+extern "C" long long pwc_stem_bwd_bf16_scratch(int n, int h, int w) {
+  return static_cast<long long>(bwd_bf16_scratch(n, h, w));
+}
+extern "C" int pwc_stem_bwd_bf16_partials() { return wg_base(4) + N_GRAD; }
+
+// f32. im: (n, h, w, 3), gout: (n, h/4, w/4, 32), dim: like im;
+// contiguous. w1..b4 as for pwc_stem_fwd; wt1..wt4: the weights as
+// [ky][kx][co][ci] f32. partials, grads, dim_blocks: f32 scratch and output
+// of the sizes above. dim_blocks and dim may both be null: then d_im is not
+// computed. Returns the CUDA error.
 extern "C" int pwc_stem_bwd(const void* im, const void* gout, const void* w1,
                             const void* b1, const void* w2, const void* b2,
                             const void* w3, const void* b3, const void* w4,
                             const void* b4, const void* wt1, const void* wt2,
                             const void* wt3, const void* wt4, void* partials,
                             void* grads, void* dim_blocks, void* dim, int n,
-                            int h, int w, int is_bf16, void* stream) {
+                            int h, int w, void* stream) {
   const float* wb[8] = {
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2),
@@ -594,13 +1025,25 @@ extern "C" int pwc_stem_bwd(const void* im, const void* gout, const void* w1,
       static_cast<const float*>(wt3), static_cast<const float*>(wt4)};
   if ((dim_blocks == nullptr) != (dim == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(partials);
-  float* g = static_cast<float*>(grads);
-  float* db = static_cast<float*>(dim_blocks);
-  cudaError_t e =
-      is_bf16 ? launch_bwd<__nv_bfloat16>(im, gout, wb, wt, p, g, db, dim, n,
-                                          h, w, s)
-              : launch_bwd<float>(im, gout, wb, wt, p, g, db, dim, n, h, w, s);
-  return static_cast<int>(e);
+  return static_cast<int>(launch_bwd_f32(
+      static_cast<const float*>(im), static_cast<const float*>(gout), wb, wt,
+      static_cast<float*>(partials), static_cast<float*>(grads),
+      static_cast<float*>(dim_blocks), static_cast<float*>(dim), n, h, w,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// bf16. im: (n, h, w, 3), gout: (n, h/4, w/4, 32), dim: like im or null
+// (then d_im is not computed); contiguous, gout 16-byte aligned. params:
+// f32 w1 (OIHW), b1, ..., w4, b4 concatenated, in the layout of grads.
+// scratch, partials: of the sizes above. grads: as for pwc_stem_bwd, but
+// each dW OIHW, every value rounded to bf16. Returns the CUDA error.
+extern "C" int pwc_stem_bwd_bf16(const void* im, const void* gout,
+                                 const void* params, void* scratch,
+                                 void* partials, void* grads, void* dim,
+                                 int n, int h, int w, void* stream) {
+  return static_cast<int>(launch_bwd_bf16(
+      static_cast<const bf16*>(im), static_cast<const bf16*>(gout),
+      static_cast<const float*>(params), static_cast<bf16*>(scratch),
+      static_cast<float*>(partials), static_cast<float*>(grads),
+      static_cast<bf16*>(dim), n, h, w, static_cast<cudaStream_t>(stream)));
 }

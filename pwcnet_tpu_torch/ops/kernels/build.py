@@ -2,8 +2,9 @@
 
 Each ``pwcnet_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled, at first use, into ``build/pwcnet_tpu_torch/lib<name>-<hash>.so``
-at the root of the checkout (the hash is of the source, so an edited source
-is rebuilt). ``build_all`` starts one ``nvcc`` per source, all at once.
+at the root of the checkout (the hash is of the source and of every
+``csrc/*.cuh`` header, so an edited source or header is rebuilt).
+``build_all`` starts one ``nvcc`` per source, all at once.
 A build failure raises; nothing falls back.
 """
 
@@ -18,6 +19,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, List
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -41,9 +44,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha1()
+    for src in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):
@@ -90,6 +94,12 @@ def build_all() -> float:
                     job[1].kill()
                     job[1].wait()
     return time.perf_counter() - t0
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy when its data is not 16-byte aligned: for the
+    tensors that a kernel stages in 16-byte copies."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -3,7 +3,8 @@ Function.
 
 Counterpart of ``pwcnet_tpu/ops/pallas/conv_kernel.py``: ``_kernel_folded``
 (``csrc/conv_folded.cu``, a direct 3x3 conv on NHWC with XLA SAME padding,
-the bias and the optional LeakyReLU fused, f32 sums) and ``_conv_bwd``,
+the bias and the optional LeakyReLU fused, f32 sums; bf16 on the tensor
+cores through ``csrc/conv3x3_mma.cuh``) and ``_conv_bwd``,
 whose backward is autograd of the plain version
 ``pwcnet_tpu_torch.ops.conv_folded.conv_ref``.
 """
@@ -16,7 +17,7 @@ from typing import Optional
 import torch
 
 from pwcnet_tpu_torch.ops.conv import _same_pads
-from pwcnet_tpu_torch.ops.kernels.build import load_library
+from pwcnet_tpu_torch.ops.kernels.build import aligned16, load_library
 from pwcnet_tpu_torch.ops.kernels.cost_volume_kernel import autograd_of
 
 SOURCE = "pwcnet_tpu_torch/csrc/conv_folded.cu"
@@ -59,6 +60,8 @@ def conv_folded_cuda(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if 9 * ci * co > MAX_WEIGHTS or stride not in (1, 2):
         raise ValueError(f"K7 takes 9 * Ci * Co <= {MAX_WEIGHTS} and stride "
                          f"1 or 2, got Ci={ci}, Co={co}, stride={stride}")
+    if x.dtype == torch.bfloat16:  # the tile stages x in 16-byte copies
+        x = aligned16(x)
     ho, wo = -(-h // stride), -(-wd // stride)
     pt, pl = _same_pads(h, 3, stride, 1)[0], _same_pads(wd, 3, stride, 1)[0]
     wf = w.detach().to(x.dtype).float().contiguous()

@@ -18,8 +18,8 @@ from typing import Sequence, Tuple
 
 import torch
 
-from pwcnet_tpu_torch.ops.conv import conv_same, leaky_relu
-from pwcnet_tpu_torch.ops.kernels.build import load_library
+from pwcnet_tpu_torch.ops.conv import _same_pads, conv_same, leaky_relu
+from pwcnet_tpu_torch.ops.kernels.build import aligned16, load_library
 
 SOURCE = "pwcnet_tpu_torch/csrc/stem.cu"
 REPLACES = "pwcnet_tpu/ops/pallas/stem_kernel.py:98"
@@ -45,17 +45,97 @@ def stem_ref(im: torch.Tensor, params: Params) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def conv_t2_ref(p: torch.Tensor, w: torch.Tensor, in_hw) -> torch.Tensor:
+    """The input gradient of a stride-2 3x3 SAME conv from the gradient
+    ``p`` (N, Ho, Wo, Co) at its output, NHWC, ``w`` HWIO (3, 3, Ci, Co), as
+    the bf16 K5 computes it: split by output parity, output row j taking
+    the taps ky with j + pt - ky even (one or two) at p row (j + pt - ky) /
+    2, columns likewise, with XLA's SAME pads (pt, pl) of the conv."""
+    n, ho, wo, _ = p.shape
+    h, wd = in_hw
+    pt, pl = _same_pads(h, 3, 2, 1)[0], _same_pads(wd, 3, 2, 1)[0]
+    out = p.new_zeros((n, h, wd, w.shape[2]))
+    for qy in (0, 1):
+        rows = torch.arange(qy, h, 2, device=p.device)
+        for qx in (0, 1):
+            cols = torch.arange(qx, wd, 2, device=p.device)
+            acc = out[:, qy::2, qx::2]
+            for ky in range((qy + pt) % 2, 3, 2):
+                oy = torch.div(rows + pt - ky, 2, rounding_mode="floor")
+                my = ((oy >= 0) & (oy < ho)).to(p.dtype)
+                for kx in range((qx + pl) % 2, 3, 2):
+                    ox = torch.div(cols + pl - kx, 2, rounding_mode="floor")
+                    mx = ((ox >= 0) & (ox < wo)).to(p.dtype)
+                    tap = p[:, oy.clamp(0, ho - 1)][:, :, ox.clamp(0, wo - 1)]
+                    tap = tap * my[:, None, None] * mx[None, :, None]
+                    acc += tap @ w[ky, kx].transpose(0, 1).to(p.dtype)
+    return out
+
+
+def stem_bwd_bf16_ref(im: torch.Tensor, params: Params, grad: torch.Tensor,
+                      need_im: bool = True):
+    """The bf16 K5's arithmetic in plain torch, returned as
+    ``stem_bwd_cuda`` returns it: every operand of a product is a value of
+    the working dtype (the image, the weights, y_l as the forward rounds
+    them, p_l rounded before it enters a product) and every sum is f32.
+    Differs from autograd through ``stem_ref`` in bf16 in where it rounds,
+    not in what it computes."""
+    dt = im.dtype
+
+    def rnd(t):
+        return t.to(dt).float()
+
+    ws = [(rnd(w), rnd(b)) for w, b in params]
+    strides = (2, 1, 2, 1)
+    ys = [im.float().permute(0, 3, 1, 2)]  # NCHW: conv l's input
+    for (w, b), s in zip(ws[:3], strides):
+        ys.append(rnd(leaky_relu(conv_same(ys[-1], w, b, stride=s))))
+    z4 = conv_same(ys[3], *ws[3], stride=1)
+    p = rnd(grad.float().permute(0, 3, 1, 2)
+            * torch.where(z4 > 0, 1.0, 0.1))
+    d_im, out = None, []
+    for layer in (3, 2, 1, 0):
+        x, (w, _) = ys[layer], ws[layer]
+        a = x.clone().requires_grad_()
+        wg = w.clone().requires_grad_()
+        dx, dw = torch.autograd.grad(
+            conv_same(a, wg, None, stride=strides[layer]), (a, wg), p)
+        out.append((rnd(dw), rnd(p.sum((0, 2, 3)))))
+        if strides[layer] == 2:
+            dx = conv_t2_ref(p.permute(0, 2, 3, 1), w.permute(2, 3, 1, 0),
+                             x.shape[2:]).permute(0, 3, 1, 2)
+        if layer:
+            p = rnd(dx * torch.where(x > 0, 1.0, 0.1))
+        elif need_im:
+            d_im = dx.permute(0, 2, 3, 1).to(dt)
+    return d_im, tuple(out[::-1])
+
+
+# How far the bf16 K5 may sit from stem_bwd_bf16_ref, max|a - b| / max|b|,
+# for d_im and for each weight or bias gradient. The two differ only in the
+# order of f32 sums, which now and then moves a value across a bf16
+# rounding step or a LeakyReLU threshold; at chip_smoke.py's shapes an H100
+# reads up to 6.5e-2 on d_im and 6.8e-3 on the others. A weight-gradient
+# split that lost tiles would be off by tenths.
+BF16_MODEL_TOL = (0.1, 1.5e-2)
+
+
 def _lib():
     lib = load_library("stem")
     lib.pwc_stem_fwd.argtypes = [_P] * 10 + [_I, _I, _I, _I, _P]
     lib.pwc_stem_fwd.restype = _I
-    lib.pwc_stem_bwd.argtypes = [_P] * 18 + [_I, _I, _I, _I, _P]
+    lib.pwc_stem_bwd.argtypes = [_P] * 18 + [_I, _I, _I, _P]
     lib.pwc_stem_bwd.restype = _I
-    for name in ("pwc_stem_bwd_grad_size", "pwc_stem_bwd_block_size"):
+    lib.pwc_stem_bwd_bf16.argtypes = [_P] * 7 + [_I, _I, _I, _P]
+    lib.pwc_stem_bwd_bf16.restype = _I
+    for name in ("pwc_stem_bwd_grad_size", "pwc_stem_bwd_block_size",
+                 "pwc_stem_bwd_bf16_partials"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = _I
     lib.pwc_stem_bwd_tiles.argtypes = [_I, _I, _I]
     lib.pwc_stem_bwd_tiles.restype = _I
+    lib.pwc_stem_bwd_bf16_scratch.argtypes = [_I, _I, _I]
+    lib.pwc_stem_bwd_bf16_scratch.restype = ctypes.c_longlong
     return lib
 
 
@@ -114,35 +194,54 @@ def stem_bwd_cuda(im: torch.Tensor, params: Params, grad: torch.Tensor,
     (dw4, db4)))``: d_im in the image's dtype (None unless ``need_im``), the
     weight and bias gradients as f32 OIHW / (C,) tensors holding values
     rounded to the image's dtype (the gradient of the f32 parameters through
-    their cast to the working dtype)."""
+    their cast to the working dtype). bf16 runs the layer-by-layer kernels
+    on the tensor cores, f32 the fused recompute kernel."""
     _check(im, params)
     n, h, w, _ = im.shape
     if (tuple(grad.shape) != (n, h // 4, w // 4, C2)
             or grad.device != im.device):
         raise ValueError(f"gradient {tuple(grad.shape)} on {grad.device} "
                          f"does not match the image {tuple(im.shape)}")
-    grad = grad.to(im.dtype).contiguous()
-    args = _hwio(params, im)
-    # [ky][kx][co][ci] for the transposed convs.
-    wts = [wt.detach().to(im.device, im.dtype).float().permute(2, 3, 0, 1)
-           .contiguous() for wt, _ in params]
+    grad = aligned16(grad.to(im.dtype).contiguous())
     lib = _lib()
     f32 = dict(dtype=torch.float32, device=im.device)
-    tiles = lib.pwc_stem_bwd_tiles(n, h, w)
-    partials = torch.empty((tiles, lib.pwc_stem_bwd_grad_size()), **f32)
     grads = torch.empty((lib.pwc_stem_bwd_grad_size(),), **f32)
-    blocks = d_im = None
-    if need_im:
-        blocks = torch.empty((tiles, lib.pwc_stem_bwd_block_size()), **f32)
-        d_im = torch.empty_like(im)
+    d_im = torch.empty_like(im) if need_im else None
+    dim_ptr = None if d_im is None else d_im.data_ptr()
+    bf16 = im.dtype == torch.bfloat16
     with torch.cuda.device(im.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pwc_stem_bwd(
-            im.data_ptr(), grad.data_ptr(), *[a.data_ptr() for a in args],
-            *[t.data_ptr() for t in wts], partials.data_ptr(),
-            grads.data_ptr(), None if blocks is None else blocks.data_ptr(),
-            None if d_im is None else d_im.data_ptr(), n, h, w,
-            int(im.dtype == torch.bfloat16), stream)
+        if bf16:
+            # Every weight (OIHW) and bias in one f32 buffer laid out as
+            # grads; the kernels round them, and write grads OIHW, rounded.
+            flat = torch.cat([t.detach().to(im.device).reshape(-1).float()
+                              for pair in params for t in pair])
+            scratch = torch.empty(
+                (lib.pwc_stem_bwd_bf16_scratch(n, h, w),), dtype=im.dtype,
+                device=im.device)
+            partials = torch.empty((lib.pwc_stem_bwd_bf16_partials(),), **f32)
+            err = lib.pwc_stem_bwd_bf16(
+                im.data_ptr(), grad.data_ptr(), flat.data_ptr(),
+                scratch.data_ptr(), partials.data_ptr(), grads.data_ptr(),
+                dim_ptr, n, h, w, stream)
+        else:
+            args = _hwio(params, im)
+            # [ky][kx][co][ci] for the transposed convs.
+            wts = [wt.detach().to(im.device, im.dtype).float()
+                   .permute(2, 3, 0, 1).contiguous() for wt, _ in params]
+            tiles = lib.pwc_stem_bwd_tiles(n, h, w)
+            partials = torch.empty((tiles, lib.pwc_stem_bwd_grad_size()),
+                                   **f32)
+            blocks = None
+            if need_im:
+                blocks = torch.empty(
+                    (tiles, lib.pwc_stem_bwd_block_size()), **f32)
+            err = lib.pwc_stem_bwd(
+                im.data_ptr(), grad.data_ptr(), *[a.data_ptr() for a in args],
+                *[t.data_ptr() for t in wts], partials.data_ptr(),
+                grads.data_ptr(),
+                None if blocks is None else blocks.data_ptr(), dim_ptr, n, h,
+                w, stream)
     if err:
         raise RuntimeError(f"stem backward kernel launch failed: CUDA error "
                            f"{err}")
@@ -150,12 +249,15 @@ def stem_bwd_cuda(im: torch.Tensor, params: Params, grad: torch.Tensor,
     out, i = [], 0
     for (wt, b) in params:
         co, ci = wt.shape[:2]
-        dw = grads[i:i + 9 * ci * co].view(3, 3, ci, co).permute(3, 2, 0, 1)
+        dw = grads[i:i + 9 * ci * co]
         i += 9 * ci * co
         db = grads[i:i + co]
         i += co
-        out.append((dw.to(im.dtype).float().contiguous(),
-                    db.to(im.dtype).float()))
+        if bf16:  # OIHW and rounded already
+            out.append((dw.view(co, ci, 3, 3), db))
+        else:
+            out.append((dw.view(3, 3, ci, co).permute(3, 2, 0, 1)
+                        .contiguous(), db))
     return d_im, tuple(out)
 
 

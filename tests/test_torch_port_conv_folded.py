@@ -196,15 +196,21 @@ def test_warp_corr_prepadded_kernel_matches_plain(shape, row0, h, scale,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1.6e-2)])
 @pytest.mark.parametrize("slope", [None, 0.1])
-@pytest.mark.parametrize("stride,ci,co,hw", [(2, 3, 16, (32, 64)),
-                                             (1, 16, 16, (16, 64)),
-                                             (2, 16, 32, (30, 70))])
-def test_conv_folded_kernel_matches_plain(stride, ci, co, hw, slope, dtype,
-                                          tol):
+@pytest.mark.parametrize("n,stride,ci,co,hw", [
+    (2, 2, 3, 16, (32, 64)), (2, 1, 16, 16, (16, 64)),
+    (2, 2, 16, 32, (30, 70)),
+    # ragged against the tiles (64 columns, 8 or 4 rows), N = 1 and 16
+    (1, 2, 3, 16, (37, 70)), (16, 1, 16, 16, (9, 67)),
+    (1, 2, 16, 32, (13, 100)), (16, 1, 32, 32, (11, 75)),
+    (2, 1, 5, 7, (6, 20)), (1, 2, 8, 40, (9, 21)),
+    # the most channels the bf16 tile stages, and more (the CUDA-core loop)
+    (1, 2, 64, 16, (9, 70)), (2, 1, 96, 8, (9, 21)), (1, 2, 80, 16, (10, 30))])
+def test_conv_folded_kernel_matches_plain(n, stride, ci, co, hw, slope,
+                                          dtype, tol):
     _need_cuda()
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(2)
-    x = torch.rand((2, *hw, ci), device="cuda", generator=g).to(dtype)
+    x = torch.rand((n, *hw, ci), device="cuda", generator=g).to(dtype)
     w = 0.1 * torch.randn((3, 3, ci, co), device="cuda", generator=g)
     b = 0.1 * torch.randn((co,), device="cuda", generator=g)
     with torch.no_grad():

@@ -259,13 +259,20 @@ def test_stem_backward_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 40, 72, 3), (1, 36, 100, 3)])
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 40, 72, 3), torch.float32), ((1, 36, 100, 3), torch.float32),
+    ((2, 40, 72, 3), torch.bfloat16), ((1, 36, 100, 3), torch.bfloat16),
+    # the bf16 kernel's tiles, ragged at N = 16
+    ((16, 44, 76, 3), torch.bfloat16),
+    # more weight-gradient tiles than blocks in every layer (1872, 1872,
+    # 944 and 944 tiles of 4 x 64 pixels over 924, 528, 264 and 264 blocks)
+    ((16, 932, 12, 3), torch.bfloat16)])
 def test_stem_backward_kernel_matches_plain(shape, dtype):
     """f32: within 1e-4 of autograd through stem_ref. bf16: within
     max(3 x the plain bf16 error, 5e-3) of an f32 oracle on the same
     bf16-rounded inputs, as tests/test_stem_kernel.py holds the Pallas
-    backward."""
+    backward, and within BF16_MODEL_TOL of stem_bwd_bf16_ref, the kernel's
+    own arithmetic."""
     _need_cuda()
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(13)
@@ -295,6 +302,32 @@ def test_stem_backward_kernel_matches_plain(shape, dtype):
         err_k = _rel_err(x.float().cpu(), o.cpu())
         err_x = _rel_err(y.float().cpu(), o.cpu())
         assert err_k <= max(3 * err_x, 5e-3), (err_k, err_x)
+    m_im, mp = stem_kernel.stem_bwd_bf16_ref(im, params, g)
+    model = [m_im] + [t for pair in mp for t in pair]
+    for i, (x, m) in enumerate(zip(got, model)):
+        tol = stem_kernel.BF16_MODEL_TOL[0 if i == 0 else 1]
+        assert _rel_err(x.float().cpu(), m.float().cpu()) <= tol, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need_im", [False, True])
+def test_stem_backward_kernel_is_deterministic(need_im):
+    """bf16: two calls on the same inputs give bit-identical gradients (a
+    fixed split of the weight-gradient sums, reduced in a fixed order)."""
+    _need_cuda()
+    rng = np.random.default_rng(15)
+    params = [(w.cuda(), b.cuda())
+              for w, b in _torch_stem_params(_stem_params(rng))]
+    im = _t(rng.random((4, 64, 96, 3), np.float32)).cuda().bfloat16()
+    g = _t(rng.standard_normal((4, 16, 24, 32)).astype(np.float32)).cuda()
+    first = stem_kernel.stem_bwd_cuda(im, params, g, need_im=need_im)
+    second = stem_kernel.stem_bwd_cuda(im, params, g, need_im=need_im)
+    torch.cuda.synchronize()
+    flat = [[d] + [t for pair in dp for t in pair] for d, dp in (first,
+                                                                  second)]
+    assert (flat[0][0] is None) == (not need_im)
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(*flat))
 
 
 # ---------------------------------------------------------------------------
