@@ -12,13 +12,16 @@ Function on the gradients), drives the PWC-Net inference forward (bf16,
 the fused train step through the kernels, checks flows, losses, launch
 counts, a checkpoint round trip, an overfit run and f32 steps against the
 CPU, measures K6 against warp + K1 per level (the crossover behind
-``FUSED_MIN_PIXELS``), runs the command line (``predict``, ``eval``, a
+``FUSED_MIN_PIXELS``), runs the JAX model's backend names on the card
+(``corr_backend="lax"`` and ``stem_backend="lax"``: the plain ops, no kernel
+launch), runs the command line (``predict``, ``eval``, a
 ``train`` that crosses ``eval_interval``) in subprocesses, holds the
 spatial path's halo-row kernels K1p and K6p and the small-channel conv K7
 against their plain versions, drives ``parallel.spatial_forward`` at
 512x1024 on 1 rank in this process and on 2 and 4 ranks (``gloo``
 processes sharing the card) against the unsharded forward, and times the
-kernels, the forwards and the train steps with CUDA events. Each phase
+kernels (K1 per level, with the tile its bf16 launch takes), the forwards
+and the train steps with CUDA events. Each phase
 prints one JSON line; any failure raises and the script exits non-zero.
 Without a CUDA device it exits 1 at once. The last line is ``{"ok": true,
 "device": {...}}``; every phase's result, the predicted flows and the
@@ -47,6 +50,11 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense bf16 tensor cores
 K1_MAIN = [(1, 7, 16, 196), (1, 14, 32, 128), (1, 28, 64, 96),
            (1, 56, 128, 64), (1, 112, 256, 32)]
 K1_RAGGED = [(2, 7, 13, 5), (1, 9, 33, 196), (3, 20, 70, 32)]
+# More K1 shapes, (shape, d): W = 17 at C = 196 (one m16 tile and a ragged
+# one), and d < 4 at real widths (every tile of the bf16 kernel: 2 x 32,
+# 1 x 32, 1 x 16 with the dy values split).
+K1_MORE = [((1, 5, 17, 196), 4), ((1, 56, 128, 64), 2),
+           ((8, 12, 14, 128), 1), ((1, 28, 64, 96), 3), ((1, 7, 16, 196), 1)]
 K4_MAIN = (2, 448, 1024, 3)  # both frames of one 448x1024 pair
 K4_MORE = [(1, 64, 192, 3), (4, 384, 448, 3)]
 # The train step (batch 8, 384x448): correlation levels 6..2 and the stem
@@ -103,6 +111,13 @@ K7_RAGGED = [((1, 37, 70, 3), 16, 2), ((16, 9, 67, 16), 16, 1),
              ((1, 13, 100, 16), 32, 2), ((16, 11, 75, 32), 32, 1),
              ((2, 6, 20, 5), 7, 1), ((1, 9, 21, 8), 40, 2),
              ((1, 9, 70, 64), 16, 2), ((2, 9, 21, 96), 8, 1)]
+# K7 with 9 Ci Co above 12288 weights (the CUDA-core loop stages them per
+# chunk of input channels): Ci = Co = 64 on the tile, Ci = 96 on the cores.
+K7_WIDE = [((1, 9, 70, 64), 64, 1), ((2, 9, 21, 96), 64, 2)]
+# K1_MORE, K7_WIDE and the K4 shapes beyond K4_MAIN and K4_MORE draw from
+# their own generator, so that the draws of the other checks stay as they
+# were.
+MORE_SEED = 6
 SPATIAL_REPS = 10  # timed spatial forwards
 TRAIN_STEPS = 10   # steps of the train_steps phase
 OVERFIT_STEPS = 30
@@ -266,6 +281,17 @@ def stem_cost(shape, dtype):
     macs = n * (l1 * 16 * 27 + l1 * 16 * 144 + l2 * 32 * 144 + l2 * 32 * 288)
     n_w = 27 * 16 + 144 * 16 + 144 * 32 + 288 * 32 + 16 + 16 + 32 + 32
     return (n * h * w * 3 + n * l2 * 32) * s + n_w * 4, 2.0 * macs
+
+
+def stem_layer_bytes(shape, dtype):
+    """The bytes the bf16 K4 moves layer by layer: the image read, level 1
+    (y1, y2) and conv3's output each written and read once, the output
+    written; stem_cost's bytes are those of a kernel that keeps level 1 on
+    chip."""
+    n, h, w, _ = shape
+    s = torch.empty((), dtype=dtype).element_size()
+    l1, l2 = (h // 2) * (w // 2), (h // 4) * (w // 4)
+    return n * (h * w * 3 + 2 * 2 * l1 * 16 + 2 * l2 * 32 + l2 * 32) * s
 
 
 def corr_pre_cost(shape, dtype):
@@ -550,7 +576,8 @@ def check_stem_bwd(timer, dev, gen) -> dict:
 
 
 def time_train_shapes(timer, dev, gen) -> dict:
-    """K1 and K4 at the train step's shapes (bf16), for the kernels line."""
+    """K1 and K4 at the train step's shapes (bf16), for the kernels line;
+    K1 held to TOL there too."""
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume_ref
     from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
     from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
@@ -560,12 +587,16 @@ def time_train_shapes(timer, dev, gen) -> dict:
         for shape in CORR_TRAIN:
             f1 = torch.randn(shape, device=dev, generator=gen).to(dtype)
             f2 = torch.randn(shape, device=dev, generator=gen).to(dtype)
-            err = rel_err(ck.cost_volume_cuda(f1, f2),
-                          cost_volume_ref(f1, f2))[0]
+            err, rel = rel_err(ck.cost_volume_cuda(f1, f2),
+                               cost_volume_ref(f1, f2))
+            if not rel <= TOL[("corr", dtype)]:
+                raise AssertionError(f"K1 disagrees at {shape} {dtype}: "
+                                     f"{rel}")
             nbytes, flops = corr_cost(shape, dtype)
             b, tb, to = bound_ms(nbytes, flops, dtype)
             rows["corr_fwd"].append(dict(
-                shape=shape, max_abs_err=err,
+                shape=shape, plan=ck.band_plan(*shape[:3]), max_abs_err=err,
+                rel_err=rel,
                 ms=timer(lambda: ck.cost_volume_cuda(f1, f2)),
                 plain_ms=timer(lambda: cost_volume_ref(f1, f2), inner=2),
                 bound_ms=b, bytes_ms=tb, ops_ms=to))
@@ -574,11 +605,14 @@ def time_train_shapes(timer, dev, gen) -> dict:
         err = rel_err(sk.stem_cuda(im, params), sk.stem_ref(im, params))[0]
         nbytes, flops = stem_cost(STEM_TRAIN, dtype)
         b, tb, to = bound_ms(nbytes, flops, dtype)
-        rows["stem_fwd"].append(dict(
-            shape=STEM_TRAIN, max_abs_err=err,
-            ms=timer(lambda: sk.stem_cuda(im, params)),
-            plain_ms=timer(lambda: sk.stem_ref(im, params)),
-            bound_ms=b, bytes_ms=tb, ops_ms=to))
+        row = dict(shape=STEM_TRAIN, max_abs_err=err,
+                   ms=timer(lambda: sk.stem_cuda(im, params)),
+                   plain_ms=timer(lambda: sk.stem_ref(im, params)),
+                   bound_ms=b, bytes_ms=tb, ops_ms=to)
+        row["over_plain"] = row["ms"] / row["plain_ms"]  # target <= 0.5
+        row["layer_bytes_ms"] = (stem_layer_bytes(STEM_TRAIN, dtype)
+                                 / HBM_BYTES_PER_S * 1e3)
+        rows["stem_fwd"].append(row)
     for name, rs in rows.items():
         emit({"phase": "train_shape_times", "kernel": name, "rows": rs})
     return rows
@@ -1066,6 +1100,7 @@ def check_k1p(timer, dev, gen) -> dict:
                     nbytes, flops = corr_pre_cost(shape, dtype)
                     b, tb, to = bound_ms(nbytes, flops, dtype)
                     row.update(
+                        plan=ck.band_plan(*shape[:3]),
                         ms=timer(lambda: ck.cost_volume_prepadded_cuda(
                             f1, f2e)),
                         plain_ms=timer(lambda: cost_volume_prepadded_ref(
@@ -1210,6 +1245,23 @@ def check_k7(timer, dev, gen) -> dict:
         for (shape, co, stride), (w, b) in zip(K7_CHAIN, params):
             ref = conv_ref(ref, w, b, stride=stride, slope=0.1)
         chain_rel = rel_err(unfold_w(y, g), ref)[1]
+        more = torch.Generator(device=dev).manual_seed(MORE_SEED)
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape, co, stride in K7_WIDE:
+                ci = shape[-1]
+                w = 0.3 * torch.randn((3, 3, ci, co), device=dev,
+                                      generator=more)
+                b = 0.1 * torch.randn((co,), device=dev, generator=more)
+                x = torch.rand(shape, device=dev, generator=more).to(dtype)
+                err, rel = rel_err(fk.conv_folded_cuda(x, w, b, stride, 0.1),
+                                   conv_ref(x, w, b, stride=stride, slope=0.1))
+                emit({"phase": "k7_check", "shape": shape, "co": co,
+                      "stride": stride, "dtype": str(dtype),
+                      "max_abs_err": err, "rel_err": rel,
+                      "tol": CONV_TOL[dtype]})
+                if not rel <= CONV_TOL[dtype]:
+                    raise AssertionError(f"K7 disagrees at {shape}, Co={co} "
+                                         f"{dtype}: {rel}")
     emit({"phase": "k7_chain", "launches": launches,
           "folded_shape": tuple(y.shape), "rel_err": chain_rel,
           "tol": 2 * CONV_TOL[torch.bfloat16]})
@@ -1218,6 +1270,58 @@ def check_k7(timer, dev, gen) -> dict:
         raise AssertionError(f"K7 chain: {launches} launches, rel err "
                              f"{chain_rel}")
     return {"rows": rows, "launches": launches}
+
+
+def backend_names(dev, base) -> None:
+    """backends: the JAX model's backend names on the card. corr_backend=
+    "lax" with stem_backend="lax" runs the plain ops (no kernel launch) and
+    gives the kernels' flows per level (f32, FWD_TOL); stem_backend=
+    "pallas" runs K4 and K1; build_model takes model.corr_backend=lax."""
+    from pwcnet_tpu_torch import PWCNet
+    from pwcnet_tpu_torch.config import apply_overrides
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
+    from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
+    from pwcnet_tpu_torch.train.loop import build_model
+    mods = (ck, sk, wk)
+    a = torch.from_numpy(base[:384, :448])[None].to(dev)
+    b = torch.from_numpy(np.roll(base, (2, 5), (0, 1))[:384, :448])[None].to(
+        dev)
+
+    def run(model):
+        torch.cuda.synchronize()
+        reset_launches(*mods)
+        with torch.inference_mode():
+            flows = model.eval()(a, b)
+        torch.cuda.synchronize()
+        return flows, {k: v for m in mods for k, v in m.LAUNCHES.items()
+                       if v}
+
+    kern = PWCNet(device=dev)
+    want, _ = run(kern)
+    lax = PWCNet(device=dev, corr_backend="lax", stem_backend="lax")
+    pallas = PWCNet(device=dev, stem_backend="pallas")
+    lax.load_state_dict(kern.state_dict())
+    pallas.load_state_dict(kern.state_dict())
+    got_lax, lax_launches = run(lax)
+    got_pallas, pallas_launches = run(pallas)
+    cfg = apply_overrides(train_config("backends"),
+                          ["model.corr_backend=lax"])
+    built = build_model(cfg, dev)
+    got_built, built_launches = run(built)
+    rel = [rel_err(g, w)[1] for g, w in zip(got_lax, want)]
+    rel_pallas = [rel_err(g, w)[1] for g, w in zip(got_pallas, want)]
+    built_ok = (built.corr_backend == "lax" and all(
+        bool(torch.isfinite(f).all()) for f in got_built))
+    emit({"phase": "backends", "lax_rel_err": rel,
+          "pallas_rel_err": rel_pallas, "tol": FWD_TOL,
+          "lax_launches": lax_launches, "pallas_launches": pallas_launches,
+          "build_model_lax_launches": built_launches,
+          "build_model_ok": built_ok})
+    if (max(rel + rel_pallas) > FWD_TOL or lax_launches
+            or pallas_launches != {"corr_fwd": 5, "stem_fwd": 1}
+            or built_launches != {"stem_fwd": 1} or not built_ok):
+        raise AssertionError("the backend names do not run as asked")
 
 
 def spatial_expected(s: int, backend: str) -> dict:
@@ -1472,6 +1576,7 @@ def main() -> int:
                     nbytes, flops = corr_cost(shape, dtype)
                     b, tb, to = bound_ms(nbytes, flops, dtype)
                     row.update(
+                        plan=cost_volume_kernel.band_plan(*shape[:3]),
                         ms=timer(lambda: cost_volume_kernel.cost_volume_cuda(
                             f1, f2)),
                         plain_ms=timer(lambda: cost_volume_ref(f1, f2),
@@ -1482,14 +1587,32 @@ def main() -> int:
                 if not rel <= tol:
                     raise AssertionError(f"K1 disagrees at {shape} {dtype}: "
                                          f"{rel} > {tol}")
+        more = torch.Generator(device=dev).manual_seed(MORE_SEED)
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape, d in K1_MORE:
+                f1 = torch.randn(shape, device=dev, generator=more).to(dtype)
+                f2 = torch.randn(shape, device=dev, generator=more).to(dtype)
+                got = cost_volume_kernel.cost_volume_cuda(f1, f2, d)
+                want = cost_volume_ref(f1, f2, d)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, want)
+                tol = TOL[("corr", dtype)]
+                emit({"phase": "k1_check", "shape": shape, "d": d,
+                      "plan": cost_volume_kernel.band_plan(*shape[:3], d),
+                      "dtype": str(dtype), "max_abs_err": err,
+                      "rel_err": rel, "tol": tol})
+                if not rel <= tol:
+                    raise AssertionError(f"K1 disagrees at {shape}, d={d} "
+                                         f"{dtype}: {rel} > {tol}")
 
     # -- 3. K4 against stem_ref --------------------------------------------
     params = stem_params(dev, seed=1)
     k4_main = None
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
-            for shape in [K4_MAIN] + K4_MORE:
-                im = torch.rand(shape, device=dev, generator=gen).to(dtype)
+            for shape in [K4_MAIN] + K4_MORE + [STEM_TRAIN] + STEM_RAGGED:
+                im = torch.rand(shape, device=dev, generator=(
+                    gen if shape in [K4_MAIN] + K4_MORE else more)).to(dtype)
                 got = stem_kernel.stem_cuda(im, params)
                 want = stem_kernel.stem_ref(im, params)
                 torch.cuda.synchronize()
@@ -1590,6 +1713,8 @@ def main() -> int:
     if not worst <= FWD_TOL:
         raise AssertionError(f"card and CPU forwards disagree: {worst}")
 
+    backend_names(dev, base)
+
     # -- 4b. The fused forward (K6 at every warped level) --------------------
     fused_forward(dev, base, timer, smi)
 
@@ -1661,6 +1786,17 @@ def main() -> int:
               conv_folded_kernel.REPLACES, k7["rows"],
               {"conv_folded": k7["launches"]}),
     ]
+    # K1 per level (bf16): the train step's, the 448x1024 pair's and K1p's
+    # at the S = 2 shards, with the tile each launch takes.
+    levels = {name: [{k: r[k] for k in ("shape", "plan", "ms", "bound_ms",
+                                        "plain_ms")} for r in rs]
+              for name, rs in (("train", train_shape["corr_fwd"]),
+                               ("main_448x1024", list(k1_main.values())),
+                               ("k1p_s2", list(k1p_timed.values())))}
+    emit({"phase": "k1_levels", "levels": levels,
+          "sum_ms": {k: sum(r["ms"] for r in v) for k, v in levels.items()},
+          "sum_bound_ms": {k: sum(r["bound_ms"] for r in v)
+                           for k, v in levels.items()}})
     emit({"phase": "inference_kernels", "corr_fwd_ms_448x1024": sum(
         r["ms"] for r in k1_main.values()), "stem_fwd_ms_448x1024":
         k4_main["ms"], "warp_corr_fwd_ms_448x1024": sum(

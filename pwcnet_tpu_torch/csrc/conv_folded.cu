@@ -31,7 +31,8 @@
 // stages at most 64 input channels; above that a bf16 conv, like every f32
 // one (held to 1e-5, so no TF32), runs on the CUDA cores: one thread per
 // output pixel and group of COT output channels, sums in registers, every
-// weight read from shared memory a broadcast.
+// weight read from shared memory a broadcast, the weights staged per chunk of
+// input channels, so that K7 takes every Ci and Co, as conv2d_folded does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,7 +43,7 @@ namespace {
 
 constexpr int THREADS = 128;  // CUDA cores: output columns per block
 constexpr int COT = 16;       // CUDA cores: output channels per thread
-constexpr int MAX_W = 12288;  // 9 * ci * co: f32 weights in shared memory
+constexpr int CIC = 64;       // CUDA cores: input channels per weight chunk
 constexpr int TILE_CI = 64;   // input channels the bf16 tile stages
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
@@ -54,16 +55,16 @@ __device__ __forceinline__ void store(c3::bf16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// The block's COT output channels take their weights from shared memory one
+// chunk of CIC input channels at a time (9 * CIC * COT f32, 36 KB), so any
+// Ci and Co fit; with Ci <= CIC the sums run in the order (ky, kx, ci).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 conv3x3_cc(const T* __restrict__ x, const float* __restrict__ w,
            const float* __restrict__ b, T* __restrict__ out, int H, int W,
            int CI, int HO, int WO, int CO, int stride, int pt, int pl,
            float slope, int has_slope) {
-  extern __shared__ float ws[];  // [ky][kx][ci][co], as w
-  const int nw = 9 * CI * CO;
-  for (int i = threadIdx.x; i < nw; i += THREADS) ws[i] = w[i];
-  __syncthreads();
+  __shared__ float ws[9 * CIC * COT];  // [tap][ci - c0][co - co0], 0 past CO
 
   // blockIdx.x walks the column blocks of each output row, row-major over
   // (n, oy); blockIdx.y is the channel group.
@@ -73,29 +74,42 @@ conv3x3_cc(const T* __restrict__ x, const float* __restrict__ w,
   const int oy = row % HO;
   const int n = row / HO;
   const int co0 = blockIdx.y * COT;
-  if (ox >= WO) return;
+  const int ncot = min(COT, CO - co0);
+  const bool live = ox < WO;  // every thread stages and syncs
 
   float acc[COT];
 #pragma unroll
   for (int k = 0; k < COT; ++k) acc[k] = 0.f;
-  const int ncot = min(COT, CO - co0);
-  for (int ky = 0; ky < 3; ++ky) {
-    const int iy = oy * stride - pt + ky;
-    if (iy < 0 || iy >= H) continue;
-    for (int kx = 0; kx < 3; ++kx) {
-      const int ix = ox * stride - pl + kx;
-      if (ix < 0 || ix >= W) continue;
-      const T* px = x + ((static_cast<size_t>(n) * H + iy) * W + ix) * CI;
-      const float* wk = ws + (ky * 3 + kx) * CI * CO + co0;
-      for (int ci = 0; ci < CI; ++ci) {
-        const float v = load_f32(px + ci);
-        const float* wr = wk + ci * CO;
+  for (int c0 = 0; c0 < CI; c0 += CIC) {
+    const int nc = min(CIC, CI - c0);
+    __syncthreads();  // the previous chunk's weights are used up
+    for (int i = threadIdx.x; i < 9 * nc * COT; i += THREADS) {
+      const int k = i % COT, c = i / COT % nc, tap = i / (COT * nc);
+      ws[(tap * CIC + c) * COT + k] =
+          k < ncot ? w[(tap * CI + c0 + c) * CO + co0 + k] : 0.f;
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int ky = 0; ky < 3; ++ky) {
+      const int iy = oy * stride - pt + ky;
+      if (iy < 0 || iy >= H) continue;
+      for (int kx = 0; kx < 3; ++kx) {
+        const int ix = ox * stride - pl + kx;
+        if (ix < 0 || ix >= W) continue;
+        const T* px =
+            x + ((static_cast<size_t>(n) * H + iy) * W + ix) * CI + c0;
+        const float* wk = ws + (ky * 3 + kx) * CIC * COT;
+        for (int c = 0; c < nc; ++c) {
+          const float v = load_f32(px + c);
+          const float* wr = wk + c * COT;
 #pragma unroll
-        for (int k = 0; k < COT; ++k)  // unrolled: acc stays in registers
-          if (k < ncot) acc[k] = fmaf(v, wr[k], acc[k]);
+          for (int k = 0; k < COT; ++k)  // unrolled: acc stays in registers
+            acc[k] = fmaf(v, wr[k], acc[k]);
+        }
       }
     }
   }
+  if (!live) return;
   T* dst = out + ((static_cast<size_t>(n) * HO + oy) * WO + ox) * CO + co0;
 #pragma unroll
   for (int k = 0; k < COT; ++k) {
@@ -113,12 +127,11 @@ cudaError_t launch_cc(const T* x, const float* w, const float* b, T* out,
                       cudaStream_t s) {
   const long long blocks =
       static_cast<long long>((wo + THREADS - 1) / THREADS) * n * ho;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>(blocks), (co + COT - 1) / COT);
-  const size_t smem = static_cast<size_t>(9) * ci * co * sizeof(float);
-  conv3x3_cc<T><<<grid, THREADS, smem, s>>>(x, w, b, out, h, wd, ci, ho, wo,
-                                            co, stride, pt, pl, slope,
-                                            has_slope);
+  const int groups = (co + COT - 1) / COT;
+  if (blocks > 0x7fffffffLL || groups > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(static_cast<unsigned>(blocks), groups);
+  conv3x3_cc<T><<<grid, THREADS, 0, s>>>(x, w, b, out, h, wd, ci, ho, wo, co,
+                                          stride, pt, pl, slope, has_slope);
   return cudaGetLastError();
 }
 
@@ -140,14 +153,14 @@ cudaError_t launch_bf16(const c3::bf16* x, const float* w, const c3::Conv& cv,
 // x: (n, h, w, ci) contiguous, bf16 when is_bf16 (then 16-byte aligned),
 // else f32; w: (3, 3, ci, co) f32 holding values rounded to x's type; b:
 // (co,) f32; out: (n, ho, wo, co) in x's type. pt, pl: the SAME padding
-// before (rows, columns). slope is used when has_slope. Needs 9 * ci * co <=
-// 12288. Returns the CUDA error.
+// before (rows, columns). slope is used when has_slope. Returns the CUDA
+// error.
 extern "C" int pwc_conv_folded_fwd(const void* x, const void* w,
                                    const void* b, void* out, int n, int h,
                                    int wd, int ci, int ho, int wo, int co,
                                    int stride, int pt, int pl, float slope,
                                    int has_slope, int is_bf16, void* stream) {
-  if (9 * ci * co > MAX_W || (stride != 1 && stride != 2))
+  if (stride != 1 && stride != 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);

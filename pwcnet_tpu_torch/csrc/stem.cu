@@ -8,16 +8,26 @@
 // Four 3x3 convs, each + bias + LeakyReLU 0.1, with XLA "SAME" padding:
 //   conv1 3 -> 16 stride 2, conv2 16 -> 16, conv3 16 -> 32 stride 2,
 //   conv4 32 -> 32.
-// (N, H, W, 3) image -> (N, H/4, W/4, 32) level-2 features, NHWC. Level-1
-// features never reach device memory, which is the point of the kernel.
+// (N, H, W, 3) image -> (N, H/4, W/4, 32) level-2 features, NHWC.
 //
 // Bound on an H100 SXM: 1.42 GMAC (2.84 GFLOP) and about 6 MB of image in and
 // features out for a bf16 448x1024 pair, i.e. about 3 us on bf16 tensor
-// cores and 2 us of memory traffic. This first version multiplies on the
-// CUDA cores in f32 and recomputes the halo of every tile, so it sits far
-// above that bound (the measured time is in PERF.md); tensor cores are later
-// work.
+// cores and 2 us of memory traffic; at the train step's 16 x 384x448, 8.6 us
+// of products against 27.5 MB (8.2 us) of image and features.
 //
+// bf16 (the forward of inference and training): layer by layer on the
+// tensor cores, the tile of conv3x3_mma.cuh (mma.sync bf16, f32 sums), 5
+// launches a call (launch_fwd_bf16): the weights packed HWIO and rounded to
+// bf16 (pack_params), conv1 (the image's 3 channels gathered), conv2 and
+// conv3 into bf16 scratch (stem_conv123, the same launches as K5's
+// recompute), and conv4 + bias + LeakyReLU into the output. Each layer
+// rounds once after its bias and activation. Level 1 crosses device memory
+// twice (y1, y2 written and read once each): 138 MB at the train shape, a
+// byte floor of 41 us; keeping level 1 on chip (one fused tile, as the TPU
+// kernel keeps it in VMEM) would take the floor to 27.5 MB, 8 us.
+//
+// f32 (a correctness path, held to 1e-4 against the plain version): the
+// fused kernel below. Level-1 features never reach device memory.
 // Design: one block per level-2 output tile of TH2 x TW2 pixels. With SAME
 // padding (stride 2 on even sizes pads 0 before and 1 after), output rows
 // [r0, r0 + T) need level-2a rows [r0 - 1, r0 + T + 1), level-1b rows
@@ -28,9 +38,8 @@
 // read neighbouring columns. Intermediate positions outside the valid
 // level-1 or level-2 extent are set to zero after the activation: XLA pads
 // the *features* with zeros, and a conv over zero input would give
-// lrelu(bias) there instead. Sums are f32; every layer's output is rounded
-// to the working type, as the plain chain of convs rounds it. Weights come in
-// as f32 (already rounded to the working type), HWIO.
+// lrelu(bias) there instead. Sums are f32; weights come in as f32 HWIO. It
+// multiplies on the CUDA cores and recomputes every tile's halo.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,28 +68,12 @@ constexpr int BUF_X = cmax(cmax(CIN * IMG_R * IMG_C, C1 * L1B_R * L1B_C),
 constexpr int BUF_Y = cmax(C1 * L1A_R * L1A_C, C2 * L2A_R * L2A_C);
 constexpr size_t SMEM_BYTES = (BUF_X + BUF_Y) * sizeof(float);
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
 // One 3x3 conv + bias + LeakyReLU between shared buffers. The input is
 // channel-major [CI][in_r][in_c]; output (r, c) reads input (S*r + ky,
 // S*c + kx). Output channel co of pixel (r, c) goes to
 // out[co * os_c + r * os_r + c * os_x]. Pixels whose absolute position
 // (abs_r0 + r, abs_c0 + c) lies outside [0, valid_r) x [0, valid_c) are 0.
-template <typename T, int CI, int CO, int S>
+template <int CI, int CO, int S>
 __device__ void conv_layer(const float* in, int in_r, int in_c, float* out,
                            int out_r, int out_c, int os_c, int os_r, int os_x,
                            const float* __restrict__ w,
@@ -123,18 +116,18 @@ __device__ void conv_layer(const float* in, int in_r, int in_c, float* out,
       const int co = g * G + k;
       float v = acc[k] + __ldg(b + co);
       v = v >= 0.f ? v : 0.1f * v;
-      out[co * os_c + r * os_r + c * os_x] = ok ? round_to<T>(v) : 0.f;
+      out[co * os_c + r * os_r + c * os_x] = ok ? v : 0.f;
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-stem_fwd(const T* __restrict__ im, const float* __restrict__ w1,
+stem_fwd(const float* __restrict__ im, const float* __restrict__ w1,
          const float* __restrict__ b1, const float* __restrict__ w2,
          const float* __restrict__ b2, const float* __restrict__ w3,
          const float* __restrict__ b3, const float* __restrict__ w4,
-         const float* __restrict__ b4, T* __restrict__ out, int H, int W) {
+         const float* __restrict__ b4, float* __restrict__ out, int H,
+         int W) {
   extern __shared__ float smem[];
   float* bx = smem;
   float* by = smem + BUF_X;
@@ -143,43 +136,43 @@ stem_fwd(const T* __restrict__ im, const float* __restrict__ w1,
   const int H1 = H / 2, W1 = W / 2, H2 = H / 4, W2 = W / 4;
 
   // Image rows [4r0 - 6, +IMG_R), columns [4c0 - 6, +IMG_C), zero outside.
-  const T* imn = im + static_cast<size_t>(n) * H * W * CIN;
+  const float* imn = im + static_cast<size_t>(n) * H * W * CIN;
   for (int e = threadIdx.x; e < IMG_R * IMG_C * CIN; e += blockDim.x) {
     const int ci = e % CIN, p = e / CIN;
     const int col = p % IMG_C, row = p / IMG_C;
     const int y = 4 * r0 - 6 + row, x = 4 * c0 - 6 + col;
     float v = 0.f;
     if (y >= 0 && y < H && x >= 0 && x < W)
-      v = to_f32(imn[(static_cast<size_t>(y) * W + x) * CIN + ci]);
+      v = imn[(static_cast<size_t>(y) * W + x) * CIN + ci];
     bx[(ci * IMG_R + row) * IMG_C + col] = v;
   }
   __syncthreads();
-  conv_layer<T, CIN, C1, 2>(bx, IMG_R, IMG_C, by, L1A_R, L1A_C,
+  conv_layer<CIN, C1, 2>(bx, IMG_R, IMG_C, by, L1A_R, L1A_C,
                             L1A_R * L1A_C, L1A_C, 1, w1, b1,
                             2 * r0 - 3, 2 * c0 - 3, H1, W1);
   __syncthreads();
-  conv_layer<T, C1, C1, 1>(by, L1A_R, L1A_C, bx, L1B_R, L1B_C,
+  conv_layer<C1, C1, 1>(by, L1A_R, L1A_C, bx, L1B_R, L1B_C,
                            L1B_R * L1B_C, L1B_C, 1, w2, b2,
                            2 * r0 - 2, 2 * c0 - 2, H1, W1);
   __syncthreads();
-  conv_layer<T, C1, C2, 2>(bx, L1B_R, L1B_C, by, L2A_R, L2A_C,
+  conv_layer<C1, C2, 2>(bx, L1B_R, L1B_C, by, L2A_R, L2A_C,
                            L2A_R * L2A_C, L2A_C, 1, w3, b3,
                            r0 - 1, c0 - 1, H2, W2);
   __syncthreads();
   // conv4 writes pixel-major [r][c][co] staging for coalesced stores.
-  conv_layer<T, C2, C2, 1>(by, L2A_R, L2A_C, bx, TH2, TW2,
+  conv_layer<C2, C2, 1>(by, L2A_R, L2A_C, bx, TH2, TW2,
                            1, TW2 * OUT_LD, OUT_LD, w4, b4,
                            r0, c0, H2, W2);
   __syncthreads();
 
   // Each tile row is one contiguous run of cols * C2 outputs.
   const int rows = min(TH2, H2 - r0), cols = min(TW2, W2 - c0);
-  T* outn = out + static_cast<size_t>(n) * H2 * W2 * C2;
+  float* outn = out + static_cast<size_t>(n) * H2 * W2 * C2;
   for (int e = threadIdx.x; e < rows * cols * C2; e += blockDim.x) {
     const int co = e % C2, p = e / C2;
     const int c = p % cols, r = p / cols;
-    store(outn + (static_cast<size_t>(r0 + r) * W2 + c0 + c) * C2 + co,
-          bx[(r * TW2 + c) * OUT_LD + co]);
+    outn[(static_cast<size_t>(r0 + r) * W2 + c0 + c) * C2 + co] =
+        bx[(r * TW2 + c) * OUT_LD + co];
   }
 }
 
@@ -219,7 +212,7 @@ stem_fwd(const T* __restrict__ im, const float* __restrict__ w1,
 // f32 (a correctness path, held to 1e-4 against the plain version): one
 // fused kernel. One block per level-2 tile of BH2 x BW2 pixels recomputes the
 // forward over the tile's halo regions (the same conv_layer calls as
-// stem_fwd, so the same rounded values and the same masks), then walks the
+// stem_fwd, so the same values and the same masks), then walks the
 // chain back with the incoming gradient restricted to its own tile:
 //   p4 = g * lrelu'(z4)                 on the tile
 //   G3 = conv4^T(p4), p3 = G3 * m3      on the tile's level-2 halo region
@@ -352,9 +345,8 @@ __device__ void grad_input(const float* p, int out_r, int out_c,
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(BTHREADS)
-stem_bwd(const T* __restrict__ im, const T* __restrict__ gout,
+stem_bwd(const float* __restrict__ im, const float* __restrict__ gout,
          const float* __restrict__ w1, const float* __restrict__ b1,
          const float* __restrict__ w2, const float* __restrict__ b2,
          const float* __restrict__ w3, const float* __restrict__ b3,
@@ -381,44 +373,44 @@ stem_bwd(const T* __restrict__ im, const T* __restrict__ gout,
   float* part = partials + tile * N_GRAD;
 
   // ---- recompute: image rows [4r0 - 6, +B_IMG_R), zero outside ----
-  const T* imn = im + static_cast<size_t>(n) * H * W * CIN;
+  const float* imn = im + static_cast<size_t>(n) * H * W * CIN;
   for (int e = threadIdx.x; e < B_IMG_N * CIN; e += blockDim.x) {
     const int ci = e % CIN, p = e / CIN;
     const int col = p % B_IMG_C, row = p / B_IMG_C;
     const int y = 4 * r0 - 6 + row, x = 4 * c0 - 6 + col;
     float v = 0.f;
     if (y >= 0 && y < H && x >= 0 && x < W)
-      v = to_f32(imn[(static_cast<size_t>(y) * W + x) * CIN + ci]);
+      v = imn[(static_cast<size_t>(y) * W + x) * CIN + ci];
     s_img[ci * B_IMG_N + p] = v;
   }
   __syncthreads();
-  conv_layer<T, CIN, C1, 2>(s_img, B_IMG_R, B_IMG_C, s_y1, B_L1A_R, B_L1A_C,
+  conv_layer<CIN, C1, 2>(s_img, B_IMG_R, B_IMG_C, s_y1, B_L1A_R, B_L1A_C,
                             B_L1A_R * B_L1A_C, B_L1A_C, 1, w1, b1,
                             2 * r0 - 3, 2 * c0 - 3, H1, W1);
   __syncthreads();
-  conv_layer<T, C1, C1, 1>(s_y1, B_L1A_R, B_L1A_C, s_y2, B_L1B_R, B_L1B_C,
+  conv_layer<C1, C1, 1>(s_y1, B_L1A_R, B_L1A_C, s_y2, B_L1B_R, B_L1B_C,
                            B_L1B_R * B_L1B_C, B_L1B_C, 1, w2, b2,
                            2 * r0 - 2, 2 * c0 - 2, H1, W1);
   __syncthreads();
-  conv_layer<T, C1, C2, 2>(s_y2, B_L1B_R, B_L1B_C, s_y3, B_L2A_R, B_L2A_C,
+  conv_layer<C1, C2, 2>(s_y2, B_L1B_R, B_L1B_C, s_y3, B_L2A_R, B_L2A_C,
                            B_L2A_R * B_L2A_C, B_L2A_C, 1, w3, b3,
                            r0 - 1, c0 - 1, H2, W2);
   __syncthreads();
   // conv4's output (pixel-major) only gives the sign for lrelu'.
-  conv_layer<T, C2, C2, 1>(s_y3, B_L2A_R, B_L2A_C, s_p4, BH2, BW2,
+  conv_layer<C2, C2, 1>(s_y3, B_L2A_R, B_L2A_C, s_p4, BH2, BW2,
                            1, BW2 * (C2 + 1), C2 + 1, w4, b4,
                            r0, c0, H2, W2);
   __syncthreads();
 
   // ---- p4 = g * lrelu'(z4) on the tile, 0 outside the level-2 extent ----
-  const T* gn = gout + static_cast<size_t>(n) * H2 * W2 * C2;
+  const float* gn = gout + static_cast<size_t>(n) * H2 * W2 * C2;
   for (int e = threadIdx.x; e < BH2 * BW2 * C2; e += blockDim.x) {
     const int co = e % C2, q = e / C2;
     const int y = r0 + q / BW2, x = c0 + q % BW2;
     float* dst = s_p4 + q * (C2 + 1) + co;
     float v = 0.f;
     if (y < H2 && x < W2)
-      v = to_f32(gn[(static_cast<size_t>(y) * W2 + x) * C2 + co]) *
+      v = gn[(static_cast<size_t>(y) * W2 + x) * C2 + co] *
           (*dst > 0.f ? 1.f : 0.1f);
     *dst = v;
   }
@@ -494,9 +486,8 @@ reduce_partials(const float* __restrict__ partials, float* __restrict__ out,
 
 // d_im[n, y, x, ci] = sum of the d_im blocks of the tiles whose image
 // region holds (y, x), tile rows then tile columns in increasing order.
-template <typename T>
 __global__ void overlap_add(const float* __restrict__ blocks,
-                            T* __restrict__ dim, int N, int H, int W,
+                            float* __restrict__ dim, int N, int H, int W,
                             int tiles_h, int tiles_w) {
   const size_t total = static_cast<size_t>(N) * H * W * CIN;
   for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
@@ -517,7 +508,7 @@ __global__ void overlap_add(const float* __restrict__ blocks,
         const size_t t = (static_cast<size_t>(n) * tiles_h + ty) * tiles_w + tx;
         acc += blocks[(t * B_IMG_N + j * B_IMG_C + k) * CIN + ci];
       }
-    store(dim + e, acc);
+    dim[e] = acc;
   }
 }
 
@@ -527,13 +518,13 @@ cudaError_t launch_bwd_f32(const float* im, const float* gout,
                            float* dim, int n, int h, int w,
                            cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      stem_bwd<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stem_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(BWD_SMEM_BYTES));
   if (e != cudaSuccess) return e;
   const int tiles_h = (h / 4 + BH2 - 1) / BH2;
   const int tiles_w = (w / 4 + BW2 - 1) / BW2;
   const dim3 grid(tiles_w, tiles_h, n);
-  stem_bwd<float><<<grid, BTHREADS, BWD_SMEM_BYTES, stream>>>(
+  stem_bwd<<<grid, BTHREADS, BWD_SMEM_BYTES, stream>>>(
       im, gout, wb[0], wb[1], wb[2], wb[3], wb[4], wb[5], wb[6], wb[7], wt[0],
       wt[1], wt[2], wt[3], partials, dim_blocks, h, w);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
@@ -542,7 +533,7 @@ cudaError_t launch_bwd_f32(const float* im, const float* gout,
       partials, grads, ntiles);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   if (dim_blocks != nullptr) {
-    overlap_add<float><<<1024, 256, 0, stream>>>(dim_blocks, dim, n, h, w,
+    overlap_add<<<1024, 256, 0, stream>>>(dim_blocks, dim, n, h, w,
                                                  tiles_h, tiles_w);
     e = cudaGetLastError();
   }
@@ -889,6 +880,61 @@ __global__ void pack_params(const float* __restrict__ params,
   out[dst] = __bfloat162float(__float2bfloat16_rn(params[e]));
 }
 
+// The four convs of the stem on an (n, h, w) image: conv1 3 -> 16 s2,
+// conv2, conv3 16 -> 32 s2, conv4.
+struct StemGeo {
+  Conv conv1, conv2, conv3, conv4;
+  StemGeo(int n, int h, int w)
+      : conv1{n, h, w, CIN, h / 2, w / 2, C1, c3::same_pad(h, 2),
+              c3::same_pad(w, 2)},
+        conv2{n, h / 2, w / 2, C1, h / 2, w / 2, C1, 1, 1},
+        conv3{n, h / 2, w / 2, C1, h / 4, w / 4, C2, c3::same_pad(h / 2, 2),
+              c3::same_pad(w / 2, 2)},
+        conv4{n, h / 4, w / 4, C2, h / 4, w / 4, C2, 1, 1} {}
+};
+
+// conv1..conv3 on the tile of conv3x3_mma.cuh, each + bias + LeakyReLU 0.1
+// rounded once to bf16, into y1, y2 (level 1) and y3 (level 2); wb: the
+// weights as pack_params packs them. K4's forward and K5's recompute both
+// run these launches, so the two cannot drift.
+cudaError_t stem_conv123(const bf16* im, const float* wb, const StemGeo& sg,
+                         bf16* y1, bf16* y2, bf16* y3, cudaStream_t st) {
+  const c3::BiasAct act1{wb + OFF_B1, 0.1f, 1}, act2{wb + OFF_B2, 0.1f, 1},
+      act3{wb + OFF_B3, 0.1f, 1};
+  cudaError_t e = c3::launch_conv<2, 4, 2, false>(
+      im, wb + OFF_W1, c3::hwio(CIN, C1), sg.conv1, y1, act1, st);
+  if (e == cudaSuccess)
+    e = c3::launch_conv<1, 8, 2, true>(y1, wb + OFF_W2, c3::hwio(C1, C1),
+                                       sg.conv2, y2, act2, st);
+  if (e == cudaSuccess)
+    e = c3::launch_conv<2, 4, 4, true>(y2, wb + OFF_W3, c3::hwio(C1, C2),
+                                       sg.conv3, y3, act3, st);
+  return e;
+}
+
+// Elements of the bf16 forward's scratch: y1, y2 at level 1, y3 at level 2.
+size_t fwd_bf16_scratch(int n, int h, int w) {
+  return static_cast<size_t>(n) * (2 * (h / 2) * (w / 2) * C1 +
+                                   (h / 4) * (w / 4) * C2);
+}
+
+// The bf16 forward (K4), 5 launches: pack_params into wb (N_GRAD f32), conv1..
+// conv3 into the scratch, conv4 + bias + LeakyReLU into out.
+cudaError_t launch_fwd_bf16(const bf16* im, const float* params, float* wb,
+                            bf16* scratch, bf16* out, int n, int h, int w,
+                            cudaStream_t st) {
+  pack_params<<<(N_GRAD + 255) / 256, 256, 0, st>>>(params, wb);
+  CHECK(cudaGetLastError());
+  const StemGeo sg(n, h, w);
+  const size_t s1 = static_cast<size_t>(n) * (h / 2) * (w / 2) * C1;
+  bf16 *y1 = scratch, *y2 = y1 + s1, *y3 = y2 + s1;
+  CHECK(stem_conv123(im, wb, sg, y1, y2, y3, st));
+  return c3::launch_conv<1, 8, 4, true>(y3, wb + OFF_W4, c3::hwio(C2, C2),
+                                        sg.conv4, out,
+                                        c3::BiasAct{wb + OFF_B4, 0.1f, 1},
+                                        st);
+}
+
 // params: the OIHW weights and the biases, f32, in the order and layout of
 // grads; partials holds wg_base(4) + N_GRAD f32, the last N_GRAD for them
 // packed by pack_params.
@@ -905,22 +951,12 @@ cudaError_t launch_bwd_bf16(const bf16* im, const bf16* g,
   bf16 *y3 = p2 + s1, *p3 = y3 + s2, *p4 = p3 + s2;
   const float *w1_ = wb + OFF_W1, *w2_ = wb + OFF_W2, *w3_ = wb + OFF_W3,
               *w4_ = wb + OFF_W4;
-  const Conv c1{n, h, w, CIN, h1, w1, C1, c3::same_pad(h, 2),
-                c3::same_pad(w, 2)};
-  const Conv c2{n, h1, w1, C1, h1, w1, C1, 1, 1};
-  const Conv c3v{n, h1, w1, C1, h2, w2, C2, c3::same_pad(h1, 2),
-                 c3::same_pad(w1, 2)};
-  const Conv c4{n, h2, w2, C2, h2, w2, C2, 1, 1};
-  const c3::BiasAct act1{wb + OFF_B1, 0.1f, 1}, act2{wb + OFF_B2, 0.1f, 1},
-      act3{wb + OFF_B3, 0.1f, 1};
+  const StemGeo sg(n, h, w);
+  const Conv &c1 = sg.conv1, &c2 = sg.conv2, &c3v = sg.conv3,
+             &c4 = sg.conv4;
   // The forward, and p4 from conv4's sums.
   CHECK(cudaGetLastError());
-  CHECK((c3::launch_conv<2, 4, 2, false>(im, w1_, c3::hwio(CIN, C1), c1, y1,
-                                         act1, st)));
-  CHECK((c3::launch_conv<1, 8, 2, true>(y1, w2_, c3::hwio(C1, C1), c2, y2,
-                                        act2, st)));
-  CHECK((c3::launch_conv<2, 4, 4, true>(y2, w3_, c3::hwio(C1, C2), c3v, y3,
-                                        act3, st)));
+  CHECK(stem_conv123(im, wb, sg, y1, y2, y3, st));
   CHECK((c3::launch_conv<1, 8, 4, true>(y3, w4_, c3::hwio(C2, C2), c4, p4,
                                         c3::BiasLreluGrad{wb + OFF_B4, g},
                                         st)));
@@ -950,40 +986,54 @@ cudaError_t launch_bwd_bf16(const bf16* im, const bf16* g,
 
 #undef CHECK
 
-template <typename T>
-cudaError_t launch(const void* im, const float* const* wb, void* out, int n,
-                   int h, int w, cudaStream_t stream) {
+cudaError_t launch_fwd_f32(const float* im, const float* const* wb,
+                           float* out, int n, int h, int w,
+                           cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      stem_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      stem_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(SMEM_BYTES));
   if (e != cudaSuccess) return e;
   const dim3 grid((w / 4 + TW2 - 1) / TW2, (h / 4 + TH2 - 1) / TH2, n);
-  stem_fwd<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(im), wb[0], wb[1], wb[2], wb[3], wb[4], wb[5],
-      wb[6], wb[7], static_cast<T*>(out), h, w);
+  stem_fwd<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      im, wb[0], wb[1], wb[2], wb[3], wb[4], wb[5], wb[6], wb[7], out, h, w);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// im: (n, h, w, 3), out: (n, h/4, w/4, 32), contiguous, bf16 when is_bf16
-// else f32; h, w divisible by 4. w1..w4: f32 HWIO (3, 3, ci, co) with
-// ci, co = 3, 16 / 16, 16 / 16, 32 / 32, 32; b1..b4: f32. Returns the CUDA
-// error.
+// f32. im: (n, h, w, 3), out: (n, h/4, w/4, 32), contiguous; h, w divisible
+// by 4. w1..w4: f32 HWIO (3, 3, ci, co) with ci, co = 3, 16 / 16, 16 /
+// 16, 32 / 32, 32; b1..b4: f32. Returns the CUDA error.
 extern "C" int pwc_stem_fwd(const void* im, const void* w1, const void* b1,
                             const void* w2, const void* b2, const void* w3,
                             const void* b3, const void* w4, const void* b4,
-                            void* out, int n, int h, int w, int is_bf16,
-                            void* stream) {
+                            void* out, int n, int h, int w, void* stream) {
   const float* wb[8] = {
       static_cast<const float*>(w1), static_cast<const float*>(b1),
       static_cast<const float*>(w2), static_cast<const float*>(b2),
       static_cast<const float*>(w3), static_cast<const float*>(b3),
       static_cast<const float*>(w4), static_cast<const float*>(b4)};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e = is_bf16 ? launch<__nv_bfloat16>(im, wb, out, n, h, w, s)
-                          : launch<float>(im, wb, out, n, h, w, s);
-  return static_cast<int>(e);
+  return static_cast<int>(launch_fwd_f32(static_cast<const float*>(im), wb,
+                                         static_cast<float*>(out), n, h, w,
+                                         static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 forward's scratch, in bf16 elements.
+extern "C" long long pwc_stem_fwd_bf16_scratch(int n, int h, int w) {
+  return static_cast<long long>(fwd_bf16_scratch(n, h, w));
+}
+
+// bf16. im: (n, h, w, 3), out: (n, h/4, w/4, 32), contiguous, out 16-byte
+// aligned; h, w divisible by 4. params: f32 w1 (OIHW), b1, ..., w4, b4
+// concatenated, in the layout of grads; packed: N_GRAD f32 of scratch for
+// them, scratch: of the size above. Returns the CUDA error.
+extern "C" int pwc_stem_fwd_bf16(const void* im, const void* params,
+                                 void* packed, void* scratch, void* out,
+                                 int n, int h, int w, void* stream) {
+  return static_cast<int>(launch_fwd_bf16(
+      static_cast<const bf16*>(im), static_cast<const float*>(params),
+      static_cast<float*>(packed), static_cast<bf16*>(scratch),
+      static_cast<bf16*>(out), n, h, w, static_cast<cudaStream_t>(stream)));
 }
 
 // Number of f32 sums in a row of partials and in grads: dW1 (HWIO), db1,

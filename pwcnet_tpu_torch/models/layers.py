@@ -67,17 +67,18 @@ class StemConvs(nn.Module):
     """Pyramid levels 1-2: conv s2 -> conv -> conv s2 -> conv, LeakyReLU 0.1
     after each. NHWC image in, NHWC level-2 features out.
 
-    On a CUDA tensor this runs the fused kernels (``csrc/stem.cu``: K4
-    forward, K5 backward, through ``StemFunction``), on a CPU tensor the
-    plain chain ``stem_ref`` (autograd's gradients). ``backend="lax"`` asks
-    for the plain chain, which the port runs only on the CPU.
+    ``backend`` is the JAX module's: ``"auto"`` and ``"pallas"`` run the
+    stem kernels on a CUDA tensor (``csrc/stem.cu``: K4 forward, K5
+    backward, through ``StemFunction``) and the plain chain ``stem_ref`` on
+    a CPU tensor; ``"lax"`` runs ``stem_ref`` on any device. The plain
+    chain's gradients are autograd's.
     """
 
     def __init__(self, c1: int, c2: int, backend: str = "auto"):
         super().__init__()
-        if backend not in ("auto", "lax"):
-            raise ValueError(f"stem backend must be 'auto' or 'lax', got "
-                             f"{backend!r}")
+        if backend not in ("auto", "pallas", "lax"):
+            raise ValueError(f"stem backend must be 'auto', 'pallas' or "
+                             f"'lax', got {backend!r}")
         self.backend = backend
         self.conv1 = Conv3x3(3, c1, stride=2)
         self.conv2 = Conv3x3(c1, c1)
@@ -90,10 +91,6 @@ class StemConvs(nn.Module):
 
     def _run(self, im: torch.Tensor) -> torch.Tensor:
         if self.backend == "lax":
-            if im.is_cuda:
-                raise NotImplementedError(
-                    "stem_backend='lax' on the GPU is not ported: the GPU "
-                    "runs the fused stem kernel")
             return stem_ref(im, self.params())
         return stem(im.contiguous(), self.params())
 

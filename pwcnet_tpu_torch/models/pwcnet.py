@@ -27,7 +27,7 @@ from torch import nn
 from pwcnet_tpu_torch.models.init import init_params
 from pwcnet_tpu_torch.models.layers import (ConvBlock, ConvStack, Conv3x3,
                                             StemConvs, leaky_relu)
-from pwcnet_tpu_torch.ops.cost_volume import cost_volume
+from pwcnet_tpu_torch.ops.cost_volume import cost_volume, cost_volume_ref
 from pwcnet_tpu_torch.ops.resize import resize_bilinear
 from pwcnet_tpu_torch.ops.warp import warp_bilinear
 from pwcnet_tpu_torch.ops.warp_corr import fused_is_profitable, warp_corr
@@ -145,7 +145,9 @@ class PWCNet(nn.Module):
 
     Options follow the JAX ``PWCNet``. The correlation and the stem are the
     CUDA kernels on the GPU (differentiable: their backward is a kernel too)
-    and their plain versions on the CPU. ``corr_backend="fused"`` runs the
+    and their plain versions on the CPU; ``corr_backend="lax"`` and
+    ``stem_backend="lax"`` ask for the plain versions on any device (their
+    gradients are autograd's). ``corr_backend="fused"`` runs the
     fused warp + correlation (K6) at the warped levels of at least
     ``fused_min_pixels`` pixels (None: the port's ``FUSED_MIN_PIXELS``; 0:
     every warped level), and warp + correlation elsewhere, as the JAX model
@@ -184,7 +186,7 @@ class PWCNet(nn.Module):
                 "the spatial path upsamples half-pixel only; "
                 f"resize_mode={resize_mode!r} under spatial_axis is not "
                 "ported (ROADMAP A7)")
-        if corr_backend not in ("pallas", "fused"):
+        if corr_backend not in ("lax", "pallas", "fused"):
             raise ValueError(f"unknown corr_backend {corr_backend!r}")
         if dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
@@ -286,14 +288,16 @@ class PWCNet(nn.Module):
                     f1h, f2h, pix, mesh, max_displacement=d,
                     halo_rows=self.spatial_halo, backend=self.corr_backend,
                     fused_min_pixels=self.fused_min_pixels)
-            elif pix is None:
-                corr = cost_volume(f1h, f2h, max_displacement=d)
-            elif self.corr_backend == "fused" and fused_is_profitable(
-                    f1h.shape[1], f1h.shape[2], self.fused_min_pixels):
+            elif (self.corr_backend == "fused" and pix is not None
+                  and fused_is_profitable(f1h.shape[1], f1h.shape[2],
+                                          self.fused_min_pixels)):
                 corr = warp_corr(f1h, f2h, pix, max_displacement=d)
             else:
-                corr = cost_volume(f1h, warp_bilinear(f2h, pix),
-                                   max_displacement=d)
+                corr_fn = (cost_volume_ref if self.corr_backend == "lax"
+                           else cost_volume)
+                corr = corr_fn(f1h, f2h if pix is None
+                               else warp_bilinear(f2h, pix),
+                               max_displacement=d)
             if intermediates is not None:
                 intermediates["corr"].append(corr)
             x = torch.cat([_nchw(leaky_relu(corr)), f1,

@@ -39,6 +39,51 @@ def cost_volume_ref(f1: torch.Tensor, f2: torch.Tensor,
     return torch.stack(outs, -1).to(f1.dtype)
 
 
+# The bf16 K1's tiling: m16 tiles of f1 pixels, each multiplied with a
+# window of f2 pixels 4 to the left and 4 to the right of it (three n8 tiles).
+BAND_M = 16
+BAND_N = BAND_M + 8
+
+
+def corr_band_ref(f1: torch.Tensor, f2: torch.Tensor,
+                  max_displacement: int = 4,
+                  prepadded: bool = False) -> torch.Tensor:
+    """The bf16 K1's arithmetic (``csrc/cost_volume.cu``) in plain torch,
+    for the tests: the correlation as banded products. For each output row
+    y, each m-tile of 16 pixels x0..x0+15 (x0 a multiple of 16; past W
+    zeros) and each dy, the 16 x C block of f1 times the 24 pixels
+    x0-4..x0+19 of f2's row y+dy (zeros outside the image), with C
+    zero-padded to a multiple of 16, gives 16 x 24 sums, of which the
+    diagonals j = i + 4 + dx, |dx| <= d, are the taps. Sums in f32, then
+    divided by C and rounded once to the inputs' dtype. With ``prepadded``,
+    f2 carries d real rows above and below (K1p). Nothing on the main path
+    calls it."""
+    d = max_displacement
+    if not 1 <= d <= 4:
+        raise ValueError(f"the band covers 1 <= d <= 4, got {d}")
+    n, h, w, c = f1.shape
+    rows = 2 * d if prepadded else 0
+    if tuple(f2.shape) != (n, h + rows, w, c):
+        raise ValueError(f"f2 {tuple(f2.shape)}: {(n, h + rows, w, c)} "
+                         "expected")
+    tiles = -(-w // BAND_M)
+    wp, cp = tiles * BAND_M, -(-c // 16) * 16
+    s = 2 * d + 1
+    a = F.pad(f1.float(), (0, cp - c, 0, wp - w)).view(n, h, tiles, BAND_M,
+                                                        cp)
+    pad_rows = 0 if prepadded else d
+    b = F.pad(f2.float(), (0, cp - c, 4, wp - w + 4, pad_rows, pad_rows))
+    win = b.unfold(2, BAND_N, BAND_M)  # (n, h + 2d, tiles, cp, 24)
+    i = torch.arange(BAND_M, device=f1.device)[:, None]
+    j = i + 4 + torch.arange(-d, d + 1, device=f1.device)[None, :]
+    taps = []
+    for dy in range(s):
+        sums = torch.einsum("nhtic,nhtcj->nhtij", a, win[:, dy:dy + h])
+        taps.append(sums[..., i, j])  # (n, h, tiles, 16, 2d + 1)
+    out = torch.stack(taps, -2).reshape(n, h, wp, s * s)[:, :, :w]
+    return (out / c).to(f1.dtype)
+
+
 def cost_volume_bwd_ref(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,
                         max_displacement: int = 4, need_f1: bool = True,
                         need_f2: bool = True):

@@ -1,7 +1,9 @@
 """Wrappers of the correlation CUDA kernels and their autograd Function.
 
 Counterpart of ``pwcnet_tpu/ops/pallas/cost_volume_kernel.py``: the forward
-``_corr_fwd_kernel`` (K1, ``csrc/cost_volume.cu``) and the backward
+``_corr_fwd_kernel`` (K1, ``csrc/cost_volume.cu``; bf16 on the tensor cores
+as banded products, whose plain model is
+``pwcnet_tpu_torch.ops.cost_volume.corr_band_ref``) and the backward
 ``_corr_bwd_f1_kernel`` / ``_corr_bwd_f2_kernel`` (K2, K3,
 ``csrc/cost_volume_bwd.cu``), tied together as ``_cost_volume_pallas``'s
 ``custom_vjp`` ties them. The plain version is
@@ -22,7 +24,7 @@ from typing import Tuple
 
 import torch
 
-from pwcnet_tpu_torch.ops.kernels.build import load_library
+from pwcnet_tpu_torch.ops.kernels.build import aligned16, load_library
 
 SOURCE = "pwcnet_tpu_torch/csrc/cost_volume.cu"
 REPLACES = "pwcnet_tpu/ops/pallas/cost_volume_kernel.py:116"
@@ -52,6 +54,17 @@ def _fwd_pre_fn():
     fn.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     return fn
+
+
+def band_plan(n: int, h: int, w: int, d: int = 4) -> Tuple[str, int]:
+    """The bf16 K1's launch at a shape: its tile (rows x columns of output
+    a block takes) and the number of blocks the dy values are split over."""
+    fn = load_library("cost_volume").pwc_cost_volume_band_plan
+    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    fn.restype = _I
+    tile = _I()
+    groups = fn(n, h, w, d, ctypes.byref(tile))
+    return ("2x32", "1x32", "1x16")[tile.value], groups
 
 
 def _bwd_fn():
@@ -90,6 +103,8 @@ def cost_volume_cuda(f1: torch.Tensor, f2: torch.Tensor,
     No autograd: ``cost_volume_fn`` is the differentiable entry."""
     d = max_displacement
     _check_features(f1, f2, d)
+    if f1.dtype == torch.bfloat16:  # staged in 16- and 8-byte copies
+        f1, f2 = aligned16(f1), aligned16(f2)
     n, h, w, c = f1.shape
     out = torch.empty((n, h, w, (2 * d + 1) ** 2), dtype=f1.dtype,
                       device=f1.device)
@@ -111,6 +126,8 @@ def cost_volume_prepadded_cuda(f1: torch.Tensor, f2e: torch.Tensor,
     ``cost_volume_prepadded_fn`` is the differentiable entry."""
     d = max_displacement
     _check_features(f1, f2e, d, 2 * d)
+    if f1.dtype == torch.bfloat16:
+        f1, f2e = aligned16(f1), aligned16(f2e)
     n, h, w, c = f1.shape
     out = torch.empty((n, h, w, (2 * d + 1) ** 2), dtype=f1.dtype,
                       device=f1.device)

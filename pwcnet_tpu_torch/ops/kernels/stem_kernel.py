@@ -122,8 +122,10 @@ BF16_MODEL_TOL = (0.1, 1.5e-2)
 
 def _lib():
     lib = load_library("stem")
-    lib.pwc_stem_fwd.argtypes = [_P] * 10 + [_I, _I, _I, _I, _P]
+    lib.pwc_stem_fwd.argtypes = [_P] * 10 + [_I, _I, _I, _P]
     lib.pwc_stem_fwd.restype = _I
+    lib.pwc_stem_fwd_bf16.argtypes = [_P] * 5 + [_I, _I, _I, _P]
+    lib.pwc_stem_fwd_bf16.restype = _I
     lib.pwc_stem_bwd.argtypes = [_P] * 18 + [_I, _I, _I, _P]
     lib.pwc_stem_bwd.restype = _I
     lib.pwc_stem_bwd_bf16.argtypes = [_P] * 7 + [_I, _I, _I, _P]
@@ -134,8 +136,9 @@ def _lib():
         getattr(lib, name).restype = _I
     lib.pwc_stem_bwd_tiles.argtypes = [_I, _I, _I]
     lib.pwc_stem_bwd_tiles.restype = _I
-    lib.pwc_stem_bwd_bf16_scratch.argtypes = [_I, _I, _I]
-    lib.pwc_stem_bwd_bf16_scratch.restype = ctypes.c_longlong
+    for name in ("pwc_stem_fwd_bf16_scratch", "pwc_stem_bwd_bf16_scratch"):
+        getattr(lib, name).argtypes = [_I, _I, _I]
+        getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
 
@@ -158,7 +161,7 @@ def _check(im: torch.Tensor, params: Params) -> None:
 
 def _hwio(params: Params, im: torch.Tensor):
     """f32 HWIO weights and f32 biases holding values rounded to the
-    working dtype, as the kernels take them."""
+    working dtype, as the f32 kernels take them."""
     args = []
     for wt, b in params:
         args.append(wt.detach().to(im.device, im.dtype).float()
@@ -167,20 +170,38 @@ def _hwio(params: Params, im: torch.Tensor):
     return args
 
 
+def _flat(params: Params, im: torch.Tensor) -> torch.Tensor:
+    """Every weight (OIHW) and bias in one f32 buffer, laid out as the
+    kernels' gradients; the bf16 kernels pack and round it."""
+    return torch.cat([t.detach().to(im.device).reshape(-1).float()
+                      for pair in params for t in pair])
+
+
 def stem_cuda(im: torch.Tensor, params: Params) -> torch.Tensor:
     """K4: (N, H, W, 3) CUDA tensor, H and W divisible by 4 ->
-    (N, H/4, W/4, 32) in the image's dtype. No autograd: ``stem_fn`` is the
-    differentiable entry."""
+    (N, H/4, W/4, 32) in the image's dtype. bf16 runs the four convs layer
+    by layer on the tensor cores (5 launches), f32 the fused CUDA-core
+    kernel. No autograd: ``stem_fn`` is the differentiable entry."""
     _check(im, params)
     n, h, w, _ = im.shape
-    args = _hwio(params, im)
+    lib = _lib()
     out = torch.empty((n, h // 4, w // 4, C2), dtype=im.dtype,
                       device=im.device)
     with torch.cuda.device(im.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().pwc_stem_fwd(
-            im.data_ptr(), *[a.data_ptr() for a in args], out.data_ptr(), n,
-            h, w, int(im.dtype == torch.bfloat16), stream)
+        if im.dtype == torch.bfloat16:
+            flat = _flat(params, im)
+            packed = torch.empty_like(flat)
+            scratch = torch.empty((lib.pwc_stem_fwd_bf16_scratch(n, h, w),),
+                                  dtype=im.dtype, device=im.device)
+            err = lib.pwc_stem_fwd_bf16(
+                im.data_ptr(), flat.data_ptr(), packed.data_ptr(),
+                scratch.data_ptr(), out.data_ptr(), n, h, w, stream)
+        else:
+            args = _hwio(params, im)
+            err = lib.pwc_stem_fwd(
+                im.data_ptr(), *[a.data_ptr() for a in args], out.data_ptr(),
+                n, h, w, stream)
     if err:
         raise RuntimeError(f"stem kernel launch failed: CUDA error {err}")
     LAUNCHES["stem_fwd"] += 1
@@ -211,11 +232,8 @@ def stem_bwd_cuda(im: torch.Tensor, params: Params, grad: torch.Tensor,
     bf16 = im.dtype == torch.bfloat16
     with torch.cuda.device(im.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if bf16:
-            # Every weight (OIHW) and bias in one f32 buffer laid out as
-            # grads; the kernels round them, and write grads OIHW, rounded.
-            flat = torch.cat([t.detach().to(im.device).reshape(-1).float()
-                              for pair in params for t in pair])
+        if bf16:  # the kernels write grads OIHW, rounded
+            flat = _flat(params, im)
             scratch = torch.empty(
                 (lib.pwc_stem_bwd_bf16_scratch(n, h, w),), dtype=im.dtype,
                 device=im.device)

@@ -22,7 +22,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from pwcnet_tpu_torch.ops.cost_volume import cost_volume_prepadded
+from pwcnet_tpu_torch.ops.cost_volume import (cost_volume_prepadded,
+                                              cost_volume_prepadded_ref)
 from pwcnet_tpu_torch.ops.warp import warp_ext_ref
 from pwcnet_tpu_torch.ops.warp_corr import (fused_is_profitable,
                                             warp_corr_prepadded)
@@ -108,8 +109,10 @@ def warp_corr_spatial_local(f1: torch.Tensor, f2e: torch.Tensor,
 
     Dispatch as the JAX island: no warp -> the halo-row correlation K1p;
     ``"fused"`` at a level whose shard-local t x W reaches the fused
-    threshold -> K6p; otherwise ``warp_ext_ref`` + K1p."""
-    if backend not in ("pallas", "fused"):
+    threshold -> K6p; otherwise ``warp_ext_ref`` + K1p. ``"lax"`` runs the
+    plain versions (``warp_ext_ref``, ``cost_volume_prepadded_ref``) on
+    any device."""
+    if backend not in ("lax", "pallas", "fused"):
         raise ValueError(f"unknown corr_backend {backend!r}")
     d = max_displacement
     t, w = f1.shape[1], f1.shape[2]
@@ -122,6 +125,8 @@ def warp_corr_spatial_local(f1: torch.Tensor, f2e: torch.Tensor,
         w2e = f2e[:, halo - d:halo + t + d].contiguous()
     else:
         w2e = warp_ext_ref(f2e, flow_e, row0, h_global, halo, d)
+    if backend == "lax":
+        return cost_volume_prepadded_ref(f1, w2e, d)
     return cost_volume_prepadded(f1, w2e, max_displacement=d)
 
 

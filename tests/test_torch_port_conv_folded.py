@@ -52,6 +52,9 @@ def _need_cuda():
     (1, 16, 16, (16, 64)),
     (2, 16, 32, (32, 128)),
     (1, 32, 32, (16, 64)),
+    # 9 * Ci * Co above the 12288 weights K7 once staged at a time
+    (1, 64, 64, (16, 64)),
+    (2, 96, 64, (16, 32)),
 ])
 def test_conv2d_folded_matches_jax(stride, ci, co, hw, slope):
     rng = np.random.default_rng(0)
@@ -204,7 +207,10 @@ def test_warp_corr_prepadded_kernel_matches_plain(shape, row0, h, scale,
     (1, 2, 16, 32, (13, 100)), (16, 1, 32, 32, (11, 75)),
     (2, 1, 5, 7, (6, 20)), (1, 2, 8, 40, (9, 21)),
     # the most channels the bf16 tile stages, and more (the CUDA-core loop)
-    (1, 2, 64, 16, (9, 70)), (2, 1, 96, 8, (9, 21)), (1, 2, 80, 16, (10, 30))])
+    (1, 2, 64, 16, (9, 70)), (2, 1, 96, 8, (9, 21)), (1, 2, 80, 16, (10, 30)),
+    # 9 * Ci * Co above 12288: weights staged per chunk of channels
+    (2, 1, 64, 64, (9, 70)), (1, 2, 96, 64, (13, 21)),
+    (1, 1, 200, 24, (5, 9))])
 def test_conv_folded_kernel_matches_plain(n, stride, ci, co, hw, slope,
                                           dtype, tol):
     _need_cuda()

@@ -172,3 +172,125 @@ def test_options_match_jax(cfg):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert _rel_err(g.numpy(), np.asarray(w)) <= TOL
+
+
+# -- the backend names (corr_backend, stem_backend) ---------------------------
+
+@pytest.fixture(scope="module")
+def lax_run():
+    """JAX ``PWCNet(corr_backend="lax")`` (its stem on the CPU: the lax
+    chain) against the port's ``corr_backend="lax"``, same flax weights."""
+    rng = np.random.default_rng(5)
+    im1 = rng.random((1, 64, 128, 3), np.float32)
+    im2 = np.clip(np.roll(im1, (1, 2), (1, 2))
+                  + 0.05 * rng.standard_normal(im1.shape), 0, 1
+                  ).astype(np.float32)
+    jm = JaxPWCNet(corr_backend="lax")
+    variables = jax.jit(jm.init)(jax.random.key(3), im1, im2)
+    rec = {"est_in": []}
+
+    def record(next_fun, args, kwargs, ctx):
+        out = next_fun(*args, **kwargs)
+        if ctx.method_name == "__call__":
+            if isinstance(ctx.module, JaxEstimator):
+                rec["est_in"].append(np.asarray(args[0]))
+            elif isinstance(ctx.module, JaxFPE):
+                rec["pyramid"] = [np.asarray(p) for p in out]
+        return out
+
+    with fnn.intercept_methods(record):
+        jflows = jm.apply(variables, im1, im2, train=False)
+    jcorr = [np.where(x[..., :NCORR] >= 0, x[..., :NCORR],
+                      x[..., :NCORR] / np.float32(0.1))
+             for x in rec["est_in"]]
+    model = PWCNet(device="cpu", corr_backend="lax", stem_backend="lax")
+    load_flax_params(model, jax.device_get(variables)["params"])
+    inter = {}
+    with torch.no_grad():
+        tflows = model(torch.from_numpy(im1), torch.from_numpy(im2),
+                       intermediates=inter)
+    return dict(
+        jax=dict(pyramid=rec["pyramid"], corr=jcorr,
+                 flows=[np.asarray(f) for f in jflows]),
+        port=dict(pyramid=[p.numpy() for p in inter["pyramid"]],
+                  corr=[c.numpy() for c in inter["corr"]],
+                  flows=[f.numpy() for f in tflows]))
+
+
+@pytest.mark.parametrize("what", ["pyramid", "corr", "flows"])
+@pytest.mark.parametrize("i", range(5))
+def test_lax_backend_matches_jax_lax_per_level(lax_run, what, i):
+    got, want = lax_run["port"][what][i], lax_run["jax"][what][i]
+    assert got.shape == want.shape
+    assert _rel_err(got, want) <= TOL
+
+
+def test_build_model_takes_corr_backend_lax():
+    from pwcnet_tpu_torch.config import PRESETS, apply_overrides
+    from pwcnet_tpu_torch.train.loop import build_model
+    cfg = apply_overrides(PRESETS["synthetic-proof"],
+                          ["model.corr_backend=lax", "model.stem_backend=lax",
+                           "model.dtype=float32"])
+    model = build_model(cfg, "cpu")
+    assert model.corr_backend == "lax"
+    assert model.pyramid.stem.backend == "lax"
+    im = torch.from_numpy(np.random.default_rng(6).random((1, 64, 64, 3),
+                                                          np.float32))
+    with torch.no_grad():
+        got = model(im, im.flip(2))
+        want = PWCNet(device="cpu", generator=torch.Generator().manual_seed(
+            cfg.train.seed))(im, im.flip(2))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas", "lax"])
+def test_stem_backends_accepted_and_plain_on_cpu(backend):
+    from pwcnet_tpu_torch.models.layers import StemConvs
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel
+    stem = StemConvs(16, 32, backend)
+    rng = np.random.default_rng(7)
+    with torch.no_grad():
+        for p in stem.parameters():
+            p.copy_(torch.from_numpy(
+                0.2 * rng.standard_normal(p.shape).astype(np.float32)))
+    im = torch.from_numpy(rng.random((2, 16, 24, 3), np.float32))
+    with torch.no_grad():
+        got = stem(im)
+    assert torch.equal(got, stem_kernel.stem_ref(im, stem.params()))
+
+
+@pytest.mark.parametrize("kwargs", [dict(corr_backend="cuda"),
+                                    dict(stem_backend="cuda")])
+def test_unknown_backend_names_raise(kwargs):
+    with pytest.raises(ValueError, match="backend"):
+        PWCNet(device="cpu", **kwargs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lax_backends_on_the_card_run_the_plain_ops(dtype):
+    """corr_backend="lax", stem_backend="lax" on a CUDA tensor: the plain
+    ops (no kernel launch counted), the same flows as the kernels' model
+    within the forward's tolerance (f32) or finite (bf16)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pwcnet_tpu_torch.ops.kernels import (cost_volume_kernel,
+                                              stem_kernel, warp_corr_kernel)
+    torch.backends.cudnn.allow_tf32 = False
+    mods = (cost_volume_kernel, stem_kernel, warp_corr_kernel)
+    lax = PWCNet(device="cuda", corr_backend="lax", stem_backend="lax",
+                 dtype=dtype).eval()
+    kern = PWCNet(device="cuda", dtype=dtype).eval()
+    rng = np.random.default_rng(8)
+    im = torch.from_numpy(rng.random((1, 128, 192, 3), np.float32)).cuda()
+    with torch.no_grad():
+        before = [dict(m.LAUNCHES) for m in mods]
+        got = lax(im, im.flip(2))
+        torch.cuda.synchronize()
+        assert [dict(m.LAUNCHES) for m in mods] == before
+        want = kern(im, im.flip(2))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        if dtype == torch.float32:
+            assert _rel_err(g.cpu().numpy(), w.cpu().numpy()) <= TOL

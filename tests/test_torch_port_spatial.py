@@ -259,7 +259,7 @@ def test_cost_volume_prepadded_matches_jax(dtype):
         assert _rel_err(got.float().numpy(), want) <= tol
 
 
-@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("backend", ("lax",) + BACKENDS)
 @pytest.mark.parametrize("flow", [None, 2.0, 8.0])
 def test_warp_corr_spatial_local_matches_jax_shards(backend, flow):
     """warp_corr_spatial_local on each of 4 shards (exchanged rows built

@@ -9,7 +9,8 @@ archive`` of the parent commit unpacked under ``build/``. Each side runs in
 its own process (both packages have one name), in the order parent, change,
 change, parent, so that drift of the card shows. A side builds its kernels
 and times them (bf16, CUDA events, ``chip_smoke.Timer``): K1 and K6 at the
-train step's and the 448x1024 pair's levels; the stem forward K4 and
+train step's and the 448x1024 pair's levels (K1 per level and summed per
+set: ``k1_train_sum``, ``k1_main_sum``); the stem forward K4 and
 backward K5 (``need_im=False``, the train step's form) on the train step's
 16 frames of 384x448; and, where the side has them, K1p and K6p at the
 512x1024 pair's levels under 2 shards and K7 at each conv of
@@ -84,6 +85,11 @@ with torch.inference_mode():
             out["k7"][str((shape, co, stride))] = timer(
                 lambda: fk.conv_folded_cuda(x, w, b, stride, 0.1))
         out["k7_sum"] = sum(out["k7"].values())
+# K1 summed per set of levels (the per-level times are in "k1").
+for key, shapes in (("k1_train_sum", cs.CORR_TRAIN),
+                    ("k1_main_sum", cs.K1_MAIN)):
+    out[key] = sum(out["k1"][str(s)] for s in shapes)
+out["k1p_sum"] = sum(out["k1p"].values())
 regs = {}
 for name in build.kernel_names():
     entry = None
