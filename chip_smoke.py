@@ -20,10 +20,11 @@ spatial path's halo-row kernels K1p and K6p and the small-channel conv K7
 against their plain versions, drives ``parallel.spatial_forward`` at
 512x1024 on 1 rank in this process and on 2 and 4 ranks (``gloo``
 processes sharing the card) against the unsharded forward, and times the
-kernels (K1 per level, with the tile its bf16 launch takes), the forwards
-and the train steps with CUDA events. Each phase
-prints one JSON line; any failure raises and the script exits non-zero.
-Without a CUDA device it exits 1 at once. The last line is ``{"ok": true,
+kernels (K1, K6, K6p and K3 per level, with the plan of each bf16 launch:
+``k1_levels``, ``k6_levels``, ``k3_levels``), the forwards and the train
+steps with CUDA events. Each phase prints one JSON line; any failure
+raises and the script exits non-zero. Without a CUDA device it exits 1 at
+once. The last line is ``{"ok": true,
 "device": {...}}``; every phase's result, the predicted flows and the
 trainer's logs go to ``DIR`` (default ``build/chip_smoke``).
 
@@ -76,6 +77,13 @@ K6_MAIN = K1_MAIN[1:]
 K6_TRAIN = CORR_TRAIN[1:]
 K6_RAGGED = [(2, 7, 13, 5), (1, 9, 33, 196), (3, 20, 70, 32),
              (1, 16, 8192, 8)]
+# More K6 and K3 shapes, (shape, d): d < 4 at real widths (every tile of the
+# bf16 kernels), and W = 17 at C = 196 (one m16 tile and a ragged one) for
+# K3; drawn from their own generator after the other checks.
+K6_MORE = [((1, 28, 64, 96), 1), ((8, 24, 28, 96), 2), ((1, 14, 32, 128), 3),
+           ((2, 7, 13, 5), 2)]
+K3_MORE = [((1, 5, 17, 196), 4), ((8, 12, 14, 128), 1), ((1, 28, 64, 96), 2),
+           ((2, 9, 33, 32), 3)]
 # Flows in pixels at a level: N(0, 1) times 1, 4 and 16, and exact
 # integers in [-3, 3] with a quarter of the pixels +-1000 px outside.
 K6_FLOWS = ("normal1", "normal4", "normal16", "integer_and_far")
@@ -114,9 +122,9 @@ K7_RAGGED = [((1, 37, 70, 3), 16, 2), ((16, 9, 67, 16), 16, 1),
 # K7 with 9 Ci Co above 12288 weights (the CUDA-core loop stages them per
 # chunk of input channels): Ci = Co = 64 on the tile, Ci = 96 on the cores.
 K7_WIDE = [((1, 9, 70, 64), 64, 1), ((2, 9, 21, 96), 64, 2)]
-# K1_MORE, K7_WIDE and the K4 shapes beyond K4_MAIN and K4_MORE draw from
-# their own generator, so that the draws of the other checks stay as they
-# were.
+# K1_MORE, K7_WIDE, K6_MORE, K3_MORE and the K4 shapes beyond K4_MAIN and
+# K4_MORE draw from their own generators, so that the draws of the other
+# checks stay as they were.
 MORE_SEED = 6
 SPATIAL_REPS = 10  # timed spatial forwards
 TRAIN_STEPS = 10   # steps of the train_steps phase
@@ -356,7 +364,9 @@ def reset_launches(*modules) -> None:
 
 def check_corr_bwd(timer, dev, gen) -> dict:
     """k2_check / k3_check: the backward kernels against autograd through
-    cost_volume_ref, same inputs and dtype; times at the train shapes."""
+    cost_volume_ref, same inputs and dtype, and a second call bit for bit
+    the same; times at the train shapes (K3 with the plan of its bf16
+    launch); then K3_MORE from their own generator."""
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume_ref
     from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
     main = {"k2_check": {}, "k3_check": {}}
@@ -367,14 +377,18 @@ def check_corr_bwd(timer, dev, gen) -> dict:
             g = torch.randn(shape[:3] + (81,), device=dev,
                             generator=gen).to(dtype)
             got = ck.cost_volume_bwd_cuda(g, f1, f2)
+            again = ck.cost_volume_bwd_cuda(g, f1, f2)
             a1, a2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
             want = torch.autograd.grad(cost_volume_ref(a1, a2), (a1, a2), g)
             torch.cuda.synchronize()
             tol = TOL[("corr_bwd", dtype)]
             for i, phase in enumerate(("k2_check", "k3_check")):
                 err, rel = rel_err(got[i], want[i])
+                # No atomics: a second call gives the same bits.
+                same = torch.equal(got[i], again[i])
                 row = {"phase": phase, "shape": shape, "dtype": str(dtype),
-                       "max_abs_err": err, "rel_err": rel, "tol": tol}
+                       "max_abs_err": err, "rel_err": rel, "tol": tol,
+                       "repeat_identical": same}
                 if shape in CORR_TRAIN and dtype == torch.bfloat16:
                     need = (i == 0, i == 1)
                     a = (f1.clone().requires_grad_(need[0]),
@@ -390,11 +404,37 @@ def check_corr_bwd(timer, dev, gen) -> dict:
                             reps=20, inner=2),
                         bound_ms=b, bytes_ms=tb, ops_ms=to)
                     del out
+                    if i == 1:
+                        row["plan"] = ck.bwd_band_plan(*shape)
                     main[phase][shape] = row
                 emit(row)
                 if not rel <= tol:
                     raise AssertionError(f"{phase} disagrees at {shape} "
                                          f"{dtype}: {rel} > {tol}")
+                if not same:
+                    raise AssertionError(f"{phase} at {shape} {dtype}: two "
+                                         "calls differ")
+    more = torch.Generator(device=dev).manual_seed(MORE_SEED)
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, d in K3_MORE:
+            f1 = torch.randn(shape, device=dev, generator=more).to(dtype)
+            f2 = torch.randn(shape, device=dev, generator=more).to(dtype)
+            g = torch.randn(shape[:3] + ((2 * d + 1) ** 2,), device=dev,
+                            generator=more).to(dtype)
+            got = ck.cost_volume_bwd_cuda(g, f1, f2, d)
+            a1, a2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+            want = torch.autograd.grad(cost_volume_ref(a1, a2, d), (a1, a2),
+                                       g)
+            torch.cuda.synchronize()
+            tol = TOL[("corr_bwd", dtype)]
+            for i, phase in enumerate(("k2_check", "k3_check")):
+                err, rel = rel_err(got[i], want[i])
+                emit({"phase": phase, "shape": shape, "d": d,
+                      "dtype": str(dtype), "max_abs_err": err,
+                      "rel_err": rel, "tol": tol})
+                if not rel <= tol:
+                    raise AssertionError(f"{phase} disagrees at {shape}, "
+                                         f"d={d} {dtype}: {rel} > {tol}")
     return main
 
 
@@ -830,8 +870,9 @@ def check_k6(timer, dev, gen) -> dict:
     """k6_check: K6 against warp_corr_ref (K1's tolerances) at the warped
     levels of a 448x1024 pair and of the train step, ragged shapes and
     W = 8192, for every flow kind; times in bf16 at the first two sets
-    (normal4 flows); then WarpCorrFunction's gradients against autograd
-    through the plain version."""
+    (normal4 flows, with the plan of the bf16 launch); K6_MORE (d < 4) from
+    their own generator; then WarpCorrFunction's gradients against
+    autograd through the plain version."""
     from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
     from pwcnet_tpu_torch.ops.warp_corr import warp_corr_ref
     timed = {"main": {}, "train": {}}
@@ -865,6 +906,7 @@ def check_k6(timer, dev, gen) -> dict:
                     nbytes, flops = warp_corr_cost(shape, dtype)
                     b, tb, to = bound_ms(nbytes, flops, dtype)
                     row.update(
+                        plan=wk.band_plan(*shape[:3]),
                         ms=timer(lambda: wk.warp_corr_cuda(f1, f2, flow)),
                         plain_ms=timer(lambda: warp_corr_ref(f1, f2, flow),
                                        inner=2),
@@ -875,6 +917,28 @@ def check_k6(timer, dev, gen) -> dict:
                 if bad:
                     raise AssertionError(f"K6 disagrees at {shape} {dtype}: "
                                          f"{bad} > {tol}")
+        more = torch.Generator(device=dev).manual_seed(MORE_SEED)
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape, d in K6_MORE:
+                f1 = torch.randn(shape, device=dev, generator=more).to(dtype)
+                f2 = torch.randn(shape, device=dev, generator=more).to(dtype)
+                errs = {}
+                for kind in K6_FLOWS:
+                    flow = k6_flow(shape, kind, dev, more)
+                    got = wk.warp_corr_cuda(f1, f2, flow, d)
+                    errs[kind] = rel_err(got, warp_corr_ref(f1, f2, flow, d))
+                torch.cuda.synchronize()
+                tol = TOL[("corr", dtype)]
+                emit({"phase": "k6_check", "shape": shape, "d": d,
+                      "plan": wk.band_plan(*shape[:3], d),
+                      "dtype": str(dtype),
+                      "max_abs_err": max(e[0] for e in errs.values()),
+                      "rel_err": {k: e[1] for k, e in errs.items()},
+                      "tol": tol})
+                bad = {k: e[1] for k, e in errs.items() if not e[1] <= tol}
+                if bad:
+                    raise AssertionError(f"K6 disagrees at {shape}, d={d} "
+                                         f"{dtype}: {bad} > {tol}")
     for dtype in (torch.float32, torch.bfloat16):
         for shape in K6_GRAD_SHAPES:
             kind = "integer_and_far" if shape[0] == 2 else "normal4"
@@ -1168,6 +1232,7 @@ def check_k6p(timer, dev, gen) -> dict:
                     nbytes, flops = warp_corr_pre_cost(shape, dtype)
                     b, tb, to = bound_ms(nbytes, flops, dtype)
                     row.update(
+                        plan=wk.band_plan(*shape[:3]),
                         ms=timer(lambda: wk.warp_corr_prepadded_cuda(
                             f1, f2e, flow, row0, h, halo)),
                         plain_ms=timer(lambda: warp_corr_prepadded_ref(
@@ -1797,6 +1862,24 @@ def main() -> int:
           "sum_ms": {k: sum(r["ms"] for r in v) for k, v in levels.items()},
           "sum_bound_ms": {k: sum(r["bound_ms"] for r in v)
                            for k, v in levels.items()}})
+    # K6 and K3 per level in the same form: K6 at the fused step's and the
+    # 448x1024 pair's warped levels and K6p at the S = 2 shards (tile, dy
+    # groups); K3 at the train step's levels (tile, channels a block takes).
+    for phase, sets in (
+            ("k6_levels", (("train", k6_timed["train"]),
+                           ("main_448x1024", k6_timed["main"]),
+                           ("k6p_s2", k6p_timed))),
+            ("k3_levels", (("train", corr_bwd_main["k3_check"]),))):
+        levels = {name: [{k: r[k] for k in ("shape", "plan", "ms",
+                                            "bound_ms", "plain_ms")}
+                         for r in rs.values()] for name, rs in sets}
+        emit({"phase": phase, "levels": levels,
+              "sum_ms": {k: sum(r["ms"] for r in v)
+                         for k, v in levels.items()},
+              "sum_bound_ms": {k: sum(r["bound_ms"] for r in v)
+                               for k, v in levels.items()},
+              "sum_plain_ms": {k: sum(r["plain_ms"] for r in v)
+                               for k, v in levels.items()}})
     emit({"phase": "inference_kernels", "corr_fwd_ms_448x1024": sum(
         r["ms"] for r in k1_main.values()), "stem_fwd_ms_448x1024":
         k4_main["ms"], "warp_corr_fwd_ms_448x1024": sum(

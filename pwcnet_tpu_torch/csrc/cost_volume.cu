@@ -29,11 +29,12 @@
 // 132 SMs.
 //
 // bf16 (corr_band): banded products on the tensor cores (mma.sync m16n8k16,
-// f32 sums; the helpers of conv3x3_mma.cuh). For one output row y, one m16
-// tile of f1 pixels x0..x0+15 (A, 16 x C) and one dy, the 24 pixels
-// x0-4..x0+19 of f2's row y+dy (B, three n8 tiles) give 16 x 24 sums, of
-// which the diagonals j = i + 4 + dx, |dx| <= d, are the taps: 37.5% of the
-// products are kept, and the products cost nothing beside the bytes.
+// f32 sums; the tile of corr_band.cuh, shared with K6 and K3). For one
+// output row y, one m16 tile of f1 pixels x0..x0+15 (A, 16 x C) and one dy,
+// the 24 pixels x0-4..x0+19 of f2's row y+dy (B, three n8 tiles) give 16 x
+// 24 sums, of which the diagonals j = i + 4 + dx, |dx| <= d, are the taps:
+// 37.5% of the products are kept, and the products cost nothing beside the
+// bytes.
 //   - Staging: C is taken in chunks of CK channels (zero-padded to a multiple
 //     of 16), double-buffered with cp.async so that the loads of chunk k + 1
 //     overlap the products of chunk k; 16-byte copies where C % 8 == 0,
@@ -65,7 +66,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "conv3x3_mma.cuh"
+#include "corr_band.cuh"
 
 namespace {
 
@@ -172,104 +173,20 @@ cudaError_t launch_f32(const float* f1, const float* f2, float* out, int n,
 
 // ---- bf16: banded products on the tensor cores ------------------------------
 
-constexpr int TPW = 3;     // dy values per warp
-constexpr int BAND = 8;    // extra f2 columns of a window: 4 on each side
-constexpr int FILL = 132;  // an H100's SMs: the blocks a level should reach
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(c3::smem_u32(p)));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
-                   c3::smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Vectors [0, nvk) of the NV = CK / VEC vectors of channels [c0, c0 + CK)
-// of `rows` rows x COLS pixels of the NHWC array src (image img, nrows rows,
-// w columns, c channels), from row fy0 and column x0, into dst pitched CK +
-// 8: pixel (r, q) at dst + (r * COLS + q) * (CK + 8). Zeros outside the
-// array and at channels >= c. VEC: channels a copy moves (8: 16-byte
-// cp.async, 4: 8-byte, 1: a 2-byte load and store); c % VEC == 0. The
-// shapes are template arguments, so the index arithmetic is shifts and
-// multiplications.
-template <int VEC, int CK, int COLS>
-__device__ __forceinline__ void stage_band(const bf16* __restrict__ src,
-                                           int img, int nrows, int w, int c,
-                                           int fy0, int x0, int rows,
-                                           int c0, int nvk, bf16* dst) {
-  constexpr int NV = CK / VEC;
-  const int total = rows * COLS * NV;
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int v = e % NV, pix = e / NV;
-    if (v >= nvk) continue;
-    const int fy = fy0 + pix / COLS, x = x0 + pix % COLS, ch = c0 + v * VEC;
-    bf16* d = dst + pix * (CK + 8) + v * VEC;
-    const bool in = fy >= 0 && fy < nrows && x >= 0 && x < w && ch < c;
-    const bf16* s =
-        in ? src + ((static_cast<size_t>(img) * nrows + fy) * w + x) * c + ch
-           : nullptr;
-    if constexpr (VEC == 8) {
-      if (in)
-        c3::cp_async16(d, s);
-      else
-        *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-    } else if constexpr (VEC == 4) {
-      if (in)
-        cp_async8(d, s);
-      else
-        *reinterpret_cast<uint2*>(d) = make_uint2(0, 0);
-    } else {
-      *d = in ? *s : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// Warps of a block: one per (row, m16 tile, TPW dy values), at least MINW,
-// so that a small tile still stages its chunks with 4 warps.
-constexpr int MINW = 4;
-__host__ __device__ constexpr int band_warps(int compute) {
-  return compute > MINW ? compute : MINW;
-}
-
-// The bytes of shared memory of a launch: two chunk buffers (one when C fits
-// one chunk), then the taps' f32 staging over them.
-template <int D, int R, int MT, int CK>
-struct BandSmem {
-  static constexpr int XW = 16 * MT, PITCH = CK + 8;
-  static size_t bytes(int dyg, int chunks) {
-    const size_t chunk =
-        (static_cast<size_t>(R) * XW + (R + dyg - 1) * (XW + BAND)) * PITCH *
-        sizeof(bf16);
-    const size_t taps = static_cast<size_t>(R) * XW * dyg * (2 * D + 1) *
-                        sizeof(float);
-    const size_t stages = (chunks > 1 ? 2 : 1) * chunk;
-    return stages > taps ? stages : taps;
-  }
-};
+using band::BAND;
+using band::FILL;
+using band::TPW;
 
 // One block: output rows R * (blockIdx.y / dg) + [0, R), columns 16 MT *
 // blockIdx.x + [0, 16 MT), dy indices [g dyg, g dyg + dyg) ∩ [0, 2D + 1)
 // with g = blockIdx.y % dg, image blockIdx.z. Warp (r, mt, q) takes row r,
 // m16 tile mt and the dy indices q TPW + [0, TPW) of the group.
 template <int D, int R, int MT, int CK, int VEC>
-__global__ void __launch_bounds__(band_warps(R * MT * TPW) * 32)
+__global__ void __launch_bounds__(band::band_warps(R * MT * TPW) * 32)
 corr_band(const bf16* __restrict__ f1, const bf16* __restrict__ f2,
           bf16* __restrict__ out, int H, int W, int C, int f2_rows,
           int f2_off, int dg, int dyg) {
-  constexpr int S = 2 * D + 1, K = S * S;
+  constexpr int S = 2 * D + 1;
   constexpr int XW = 16 * MT, WW = XW + BAND, PITCH = CK + 8;
   extern __shared__ __align__(16) unsigned char band_smem[];
   bf16* bufs = reinterpret_cast<bf16*>(band_smem);
@@ -284,18 +201,18 @@ corr_band(const bf16* __restrict__ f1, const bf16* __restrict__ f2,
   const int cp = (C + 15) / 16 * 16, chunks = cdiv(cp, CK);
 
   const int wq = cdiv(dyg, TPW);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int q = warp % wq, mt = warp / wq % MT, r = warp / (wq * MT);
   const bool computes = warp < R * MT * wq;  // the others only stage
 
   auto stage = [&](int k) {
     bf16* b = bufs + (k & 1) * chunk;
     const int c0 = k * CK, nvk = min(CK, cp - c0) / VEC;
-    stage_band<VEC, CK, XW>(f1, img, H, W, C, y0, x0, R, c0, nvk, b);
-    stage_band<VEC, CK, WW>(f2, img, f2_rows, W, C, y0 + dy_lo - D + f2_off,
-                            x0 - BAND / 2, f2r, c0, nvk,
-                            b + R * XW * PITCH);
-    cp_commit();
+    band::stage_band<VEC, CK, XW>(f1, img, H, W, C, y0, x0, R, c0, nvk, b);
+    band::stage_band<VEC, CK, WW>(f2, img, f2_rows, W, C,
+                                  y0 + dy_lo - D + f2_off, x0 - BAND / 2,
+                                  f2r, c0, nvk, b + R * XW * PITCH);
+    band::cp_commit();
   };
 
   float acc[TPW][3][4];
@@ -310,97 +227,24 @@ corr_band(const bf16* __restrict__ f1, const bf16* __restrict__ f2,
   for (int k = 0; k < chunks; ++k) {
     if (k + 1 < chunks) {
       stage(k + 1);  // the buffer of chunk k - 1, free since its last sync
-      cp_wait<1>();
+      band::cp_wait<1>();
     } else {
-      cp_wait<0>();
+      band::cp_wait<0>();
     }
     __syncthreads();
     const bf16* a_tile = bufs + (k & 1) * chunk;
-    const bf16* b_tile = a_tile + R * XW * PITCH;
     const int steps = computes ? min(CK, cp - k * CK) / 16 : 0;
-    for (int ks = 0; ks < steps; ++ks) {
-      uint32_t a[4];
-      c3::ldsm_x4(a, a_tile + (r * XW + 16 * mt + c3::a_row(lane)) * PITCH +
-                         16 * ks + c3::a_k(lane));
-#pragma unroll
-      for (int j = 0; j < TPW; ++j) {
-        const int dyi = q * TPW + j;  // dy index within the group
-        if (dyi >= ndy) break;
-        // Window row: f2 pixels x0 + 16 mt - 4 + [0, 24) of row r + dyi.
-        const bf16* win = b_tile + ((r + dyi) * WW + 16 * mt) * PITCH +
-                          16 * ks;
-        // Matrices (n8 tile 0, k 0-7), (0, k 8-15), (1, k 0-7), (1, k 8-15).
-        const int m = lane >> 3;
-        uint32_t b01[4], b2[2];
-        c3::ldsm_x4(b01, win + (8 * (m >> 1) + (lane & 7)) * PITCH +
-                             8 * (m & 1));
-        ldsm_x2(b2, win + (16 + (lane & 7)) * PITCH + 8 * (m & 1));
-        c3::mma(acc[j][0], a, b01[0], b01[1]);
-        c3::mma(acc[j][1], a, b01[2], b01[3]);
-        c3::mma(acc[j][2], a, b2[0], b2[1]);
-      }
-    }
+    band::band_mma<XW, PITCH>(acc, a_tile, a_tile + R * XW * PITCH, r, mt,
+                              q, ndy, steps);
     __syncthreads();  // chunk k's buffer is refilled by stage(k + 2)
   }
 
-  // The diagonals: sum (i, j) of the m16 x 24 tile is tap dx = j - i - 4 of
-  // pixel i (c0, c1: i = g, j = 8 nt + 2t + {0, 1}; c2, c3: i = g + 8).
-  // Staged as taps[(r XW + pixel) dyg S + dyi S + dx + D], the mean in f32.
-  // Rows g never reach n8 tile 2 (dx >= 5) and rows g + 8 never tile 0
-  // (dx <= -5): those sums are skipped at compile time.
-  const float cf = static_cast<float>(C);
-  const int gi = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < TPW; ++j) {
-    const int dyi = q * TPW + j;
-    if (!computes || dyi >= ndy) break;
-    float* px = taps + ((r * XW + 16 * mt + gi) * dyg + dyi) * S + D - gi -
-                BAND / 2 + 2 * t;
-#pragma unroll
-    for (int nt = 0; nt < 3; ++nt)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) {
-        if ((nt == 2 && v < 2) || (nt == 0 && v >= 2)) continue;
-        const int i8 = 8 * (v >> 1), jj = 8 * nt + (v & 1);  // + gi, + 2t
-        const int dx = jj + 2 * t - gi - i8 - BAND / 2;
-        if (dx >= -D && dx <= D)
-          px[i8 * dyg * S + jj - i8] = acc[j][nt][v] / cf;
-      }
-  }
+  if (computes)
+    band::band_taps<XW>(acc, taps, r, mt, q, ndy, dyg, D,
+                        static_cast<float>(C));
   __syncthreads();
-
-  // Each tile row leaves as runs: per pixel the ndy S taps at channel
-  // dy_lo S; with one group (dyg = S) the whole row is one run of cols K,
-  // stored 16 bytes at a time where aligned.
-  const int cols = min(XW, W - x0);
-  for (int rr = 0; rr < R; ++rr) {
-    const int y = y0 + rr;
-    if (y >= H) break;
-    const size_t base = ((static_cast<size_t>(img) * H + y) * W + x0) * K;
-    const float* src = taps + rr * XW * dyg * S;
-    if (dg == 1) {
-      const int len = cols * K;
-      const int head = min(len, static_cast<int>((8 - base % 8) % 8));
-      const int nvec = (len - head) / 8;
-      for (int e = threadIdx.x; e < head; e += blockDim.x)
-        out[base + e] = __float2bfloat16_rn(src[e]);
-      for (int v = threadIdx.x; v < nvec; v += blockDim.x) {
-        const float* s = src + head + 8 * v;
-        *reinterpret_cast<uint4*>(out + base + head + 8 * v) =
-            make_uint4(c3::pack(s[0], s[1]), c3::pack(s[2], s[3]),
-                       c3::pack(s[4], s[5]), c3::pack(s[6], s[7]));
-      }
-      for (int e = head + 8 * nvec + threadIdx.x; e < len; e += blockDim.x)
-        out[base + e] = __float2bfloat16_rn(src[e]);
-    } else {
-      const int run = ndy * S;
-      for (int e = threadIdx.x; e < cols * run; e += blockDim.x) {
-        const int p = e / run, kk = e % run;
-        out[base + static_cast<size_t>(p) * K + dy_lo * S + kk] =
-            __float2bfloat16_rn(src[p * dyg * S + kk]);
-      }
-    }
-  }
+  band::band_store<R, XW>(out, taps, img, H, W, y0, x0, D, dg, dyg, dy_lo,
+                          ndy);
 }
 
 template <int D, int R, int MT, int CK, int VEC>
@@ -411,7 +255,7 @@ cudaError_t launch_band(const bf16* f1, const bf16* f2, bf16* out, int n,
   const int dyg = cdiv(S, dg);
   dg = cdiv(S, dyg);
   const int chunks = cdiv(cdiv(c, 16) * 16, CK);
-  const size_t smem = BandSmem<D, R, MT, CK>::bytes(dyg, chunks);
+  const size_t smem = band::fwd_stage_bytes(R, MT, CK, D, dyg, chunks);
   const long long gy = static_cast<long long>(cdiv(h, R)) * dg;
   if (smem > c3::MAX_SMEM || gy > 65535 || n > 65535)
     return cudaErrorInvalidValue;
@@ -421,8 +265,8 @@ cudaError_t launch_band(const bf16* f1, const bf16* f2, bf16* out, int n,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const dim3 grid(cdiv(w, 16 * MT), static_cast<unsigned>(gy), n);
-  kernel<<<grid, band_warps(R * MT * cdiv(dyg, TPW)) * 32, smem, stream>>>(
-      f1, f2, out, h, w, c, f2_rows, f2_off, dg, dyg);
+  kernel<<<grid, band::band_warps(R * MT * cdiv(dyg, TPW)) * 32, smem,
+           stream>>>(f1, f2, out, h, w, c, f2_rows, f2_off, dg, dyg);
   return cudaGetLastError();
 }
 

@@ -19,20 +19,50 @@
 //
 // Bound on an H100 SXM: each pixel reads 81 + 2C inputs and writes C outputs
 // and does 162 * C flops, i.e. below 20 flops a byte, so the least time is
-// the bytes over 3.35 TB/s. This first version multiplies on the CUDA cores
-// in f32 and re-reads the halo of every tile, so it sits well above that
-// bound (the measured time is in PERF.md).
+// the bytes over 3.35 TB/s. At PWC-Net's sizes what costs is latency and
+// the number of blocks a level puts on the 132 SMs.
 //
-// Design: one block per (n, 32-channel chunk, TH x TW pixel tile), 32 x TH
-// threads: lane = channel in the chunk, warp = tile row. The block stages
-// the f2 (K2) or f1 (K3) tile with a d-pixel halo, pixel-major with the 32
-// channels contiguous (coalesced loads, conflict-free reads), zero outside
-// the image. It then walks dy: for each dy it stages the 2d+1 taps of g that
-// this row of displacements needs (broadcast reads), loads the halo row of
-// features into registers and updates the TW sums of its row.
+// bf16 K3 (corr_bwd_f2_band): banded products on the tensor cores
+// (mma.sync m16n8k16, f32 sums; the helpers of corr_band.cuh), the
+// transpose of K1's band. For an output row y, an m16 tile of pixels
+// x0..x0+15 and one dy, the source row is ys = y - dy and the source window
+// the 32 pixels x0-8..x0+23 (two whole k16 steps):
+//   df2[y, x_i, :] += sum_j A[i, j] * f1[ys, x_j, :],
+//   A[i, j] = g[ys, x_j, k(dy, x_i - x_j)] for |x_i - x_j| <= d, else 0.
+//   - The block stages its f1 rows (y0-d..y0+R-1+d, the columns of its
+//     windows, its channel slice) once with cp.async, pixels pitched CB + 8,
+//     and builds every band A (16 x 32, pitch 40: ldmatrix without bank
+//     conflicts) of its (row, dy, m16 tile) once, from g's S taps per source
+//     pixel (contiguous in g, so a warp's 2-byte loads are coalesced; a g
+//     pixel holds 81 values, 162 bytes, so wider loads would be misaligned).
+//   - B is the f1 window, row-major in (K = pixel, N = channel): its
+//     fragments come from ldmatrix.trans. A warp holds 16 pixels x 32
+//     channels of f32 sums in registers over the 2d + 1 dy values, then
+//     scales them by 1/C, rounds once and stores them.
+//   - Filling the card: pick_bwd_band picks the tile (4 x 16 or 1 x 16
+//     pixels; 2 x 32 and 1 x 32 only for tools/tune_band.py) and the
+//     channel slice of a block (32 or 64 channels; C = 196 pads to 208),
+//     from measurements of every plan; rows, columns and slices make the
+//     blocks. A block has at least 8 warps, so that its band fill keeps
+//     enough loads in flight. No
+//     atomics: every output value is one warp's sum, the same run to run.
+//   - K2 (df1) is the same product with another band: A[i, j] = g[y, x_i,
+//     k(dy, x_j - x_i)], B = the f2 window of row y + dy; it keeps the
+//     CUDA-core kernel below until it moves onto this tile.
+//
+// f32 (both) and bf16 K2 (corr_bwd): the CUDA cores in f32, the
+// correctness path. One block per (n, 32-channel chunk, TH x TW pixel tile),
+// 32 x TH threads: lane = channel in the chunk, warp = tile row. The block
+// stages the f2 (K2) or f1 (K3) tile with a d-pixel halo, pixel-major with
+// the 32 channels contiguous (coalesced loads, conflict-free reads), zero
+// outside the image. It then walks dy: for each dy it stages the 2d+1 taps
+// of g that this row of displacements needs (broadcast reads), loads the
+// halo row of features into registers and updates the TW sums of its row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "corr_band.cuh"
 
 namespace {
 
@@ -170,6 +200,211 @@ cudaError_t dispatch(const void* g, const void* feat, void* out, int n, int h,
   }
 }
 
+// ---- bf16 K3: the transposed band on the tensor cores -----------------------
+
+using c3::bf16;
+using c3::cdiv;
+
+constexpr int WIN = 32;          // source window: x0 - 8 .. x0 + 23
+constexpr int APITCH = WIN + 8;  // a band row, pitched for ldmatrix
+
+// Warps of a block: one per (row, m16 tile, 32 channels), at least 8, so
+// that the band fill has enough loads in flight.
+__host__ __device__ constexpr int bwd_warps(int compute) {
+  return compute > 8 ? compute : 8;
+}
+
+// Shared memory: the f1 rows (R + 2d rows x 16 MT + 16 pixels, pitch 32 QW
+// + 8), then the bands of (row, dy, m16 tile), 16 x APITCH each.
+__host__ inline size_t bwd_band_bytes(int r, int mt, int qw, int d) {
+  const size_t s = 2 * d + 1;
+  return ((r + 2 * d) * (16 * mt + 16) * (32 * qw + 8) +
+          r * s * mt * 16 * APITCH) * sizeof(bf16);
+}
+
+// One block: output rows R * blockIdx.y + [0, R), columns 16 MT * blockIdx.x
+// + [0, 16 MT), channels CB * (blockIdx.z % slices) + [0, CB) with CB = 32
+// QW, image blockIdx.z / slices. Warp (r, mt, q) takes row r, m16 tile mt
+// and channels 32 q + [0, 32) of the slice.
+template <int R, int MT, int QW, int VEC>
+__global__ void __launch_bounds__(bwd_warps(R * MT * QW) * 32)
+corr_bwd_f2_band(const bf16* __restrict__ g, const bf16* __restrict__ f1,
+                 bf16* __restrict__ out, int H, int W, int C, int D,
+                 int slices) {
+  constexpr int XW = 16 * MT, FW = XW + 16, CB = 32 * QW, PITCH = CB + 8;
+  const int S = 2 * D + 1, K = S * S, FR = R + 2 * D;
+  extern __shared__ __align__(16) unsigned char bwd_smem[];
+  bf16* f1s = reinterpret_cast<bf16*>(bwd_smem);  // f1 row y0 - D + i
+  bf16* bands = f1s + FR * FW * PITCH;
+
+  const int img = blockIdx.z / slices, c0 = blockIdx.z % slices * CB;
+  const int y0 = blockIdx.y * R, x0 = blockIdx.x * XW;
+  const int cp = (C + 15) / 16 * 16;
+  band::stage_band<VEC, CB, FW>(f1, img, H, W, C, y0 - D, x0 - 8, FR, c0,
+                                min(CB, cp - c0) / VEC, f1s);
+  band::cp_commit();
+
+  // The bands: zeros, then the taps. Band b = (r S + dyi) MT + mt, entry
+  // (i, j) = g[ys, x_j, dyi S + dx + D], ys = y0 + r - dyi + D, x_j = x0 +
+  // 16 mt - 8 + j, dx = i + 8 - j. A thread takes (band, source pixel j),
+  // loads the pixel's S taps of row dyi together (contiguous in g, so a
+  // warp's loads are coalesced and all in flight at once), then writes
+  // those that fall on the tile's pixels 0..15.
+  const int nb = R * S * MT;
+  uint4* z = reinterpret_cast<uint4*>(bands);
+  for (int e = threadIdx.x; e < nb * 16 * APITCH / 8; e += blockDim.x)
+    z[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  for (int e = threadIdx.x; e < nb * WIN; e += blockDim.x) {
+    const int j = e % WIN, b = e / WIN;
+    const int mt = b % MT, rd = b / MT, dyi = rd % S, r = rd / S;
+    const int ys = y0 + r - dyi + D, xs = x0 + 16 * mt - 8 + j;
+    if (ys < 0 || ys >= H || xs < 0 || xs >= W) continue;
+    const bf16* src =
+        g + ((static_cast<size_t>(img) * H + ys) * W + xs) * K + dyi * S;
+    bf16* dst = bands + b * 16 * APITCH + j;
+    const int i0 = j - 8 - D;  // the pixel of tap dxi is i0 + dxi
+    bf16 v[9];
+#pragma unroll
+    for (int dxi = 0; dxi < 9; ++dxi)
+      if (dxi < S && i0 + dxi >= 0 && i0 + dxi < 16) v[dxi] = src[dxi];
+#pragma unroll
+    for (int dxi = 0; dxi < 9; ++dxi)
+      if (dxi < S && i0 + dxi >= 0 && i0 + dxi < 16)
+        dst[(i0 + dxi) * APITCH] = v[dxi];
+  }
+  band::cp_wait<0>();
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q = warp % QW, mt = warp / QW % MT, r = warp / (QW * MT);
+  if (warp >= R * MT * QW) return;  // a staging warp
+  // Channel pairs (16 channels) of the warp's 32 that hold padded channels.
+  const int pairs = max(0, min(2, (cp - c0 - 32 * q) / 16));
+  float acc[4][4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc[nt][v] = 0.f;
+
+  for (int dyi = 0; dyi < S; ++dyi) {
+    const int ys = y0 + r - dyi + D;
+    if (ys < 0 || ys >= H) continue;  // a band of zeros
+    const bf16* a_band = bands + ((r * S + dyi) * MT + mt) * 16 * APITCH;
+    const bf16* win = f1s + ((r - dyi + 2 * D) * FW + 16 * mt) * PITCH +
+                      32 * q;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      uint32_t a[4];
+      c3::ldsm_x4(a, a_band + c3::a_row(lane) * APITCH + 16 * ks +
+                         c3::a_k(lane));
+      // Matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15,
+      // n 8-15) of the pair, transposed: b0, b1 of two n8 tiles.
+      const bf16* row = win + (16 * ks + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                                  PITCH + 8 * (lane >> 4);
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        if (p >= pairs) break;
+        uint32_t b[4];
+        c3::ldsm_x4_t(b, row + 16 * p);
+        c3::mma(acc[2 * p], a, b[0], b[1]);
+        c3::mma(acc[2 * p + 1], a, b[2], b[3]);
+      }
+    }
+  }
+
+  // c0, c1: pixel gi, channels 2t, 2t + 1 of n8 tile nt; c2, c3: pixel
+  // gi + 8. Scaled by 1/C and rounded once; channel pairs as one 4-byte
+  // store where C is even.
+  const int y = y0 + r;
+  if (y >= H) return;
+  const float inv_c = 1.f / static_cast<float>(C);
+  const int gi = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    if (nt >= 2 * pairs) break;
+    const int cc = c0 + 32 * q + 8 * nt + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int x = x0 + 16 * mt + gi + 8 * half;
+      if (x >= W || cc >= C) continue;
+      bf16* o = out + ((static_cast<size_t>(img) * H + y) * W + x) * C + cc;
+      const float v0 = acc[nt][2 * half] * inv_c;
+      const float v1 = acc[nt][2 * half + 1] * inv_c;
+      if (VEC > 1) {
+        *reinterpret_cast<uint32_t*>(o) = c3::pack(v0, v1);
+      } else {
+        o[0] = __float2bfloat16_rn(v0);
+        if (cc + 1 < C) o[1] = __float2bfloat16_rn(v1);
+      }
+    }
+  }
+}
+
+template <int R, int MT, int QW, int VEC>
+cudaError_t launch_band(const bf16* g, const bf16* f1, bf16* out, int n,
+                        int h, int w, int c, int d, cudaStream_t stream) {
+  const size_t smem = bwd_band_bytes(R, MT, QW, d);
+  const int slices = cdiv(cdiv(c, 16) * 16, 32 * QW);
+  const long long gz = static_cast<long long>(n) * slices;
+  if (smem > c3::MAX_SMEM || cdiv(h, R) > 65535 || gz > 65535)
+    return cudaErrorInvalidValue;
+  auto kernel = corr_bwd_f2_band<R, MT, QW, VEC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const dim3 grid(cdiv(w, 16 * MT), cdiv(h, R), static_cast<unsigned>(gz));
+  kernel<<<grid, bwd_warps(R * MT * QW) * 32, smem, stream>>>(
+      g, f1, out, h, w, c, d, slices);
+  return cudaGetLastError();
+}
+
+// The copy width of the f1 staging: 16 bytes where C % 8 == 0, 8 where
+// C % 4 == 0, else 2.
+template <int R, int MT, int QW>
+cudaError_t launch_band_vec(const bf16* g, const bf16* f1, bf16* out, int n,
+                            int h, int w, int c, int d, cudaStream_t s) {
+  if (c % 8 == 0)
+    return launch_band<R, MT, QW, 8>(g, f1, out, n, h, w, c, d, s);
+  if (c % 4 == 0)
+    return launch_band<R, MT, QW, 4>(g, f1, out, n, h, w, c, d, s);
+  return launch_band<R, MT, QW, 1>(g, f1, out, n, h, w, c, d, s);
+}
+
+// tile: 0: 2 x 32 pixels, 1: 1 x 32, 2: 1 x 16, 3: 4 x 16; qw: 32-channel
+// groups a block takes (1 or 2).
+cudaError_t dispatch_band(const bf16* g, const bf16* f1, bf16* out, int n,
+                          int h, int w, int c, int d, int tile, int qw,
+                          cudaStream_t s) {
+  if (d < 1 || d > 4 || (qw != 1 && qw != 2)) return cudaErrorInvalidValue;
+#define PWC_BAND(R, MT)                                                      \
+  (qw == 1 ? launch_band_vec<R, MT, 1>(g, f1, out, n, h, w, c, d, s)         \
+           : launch_band_vec<R, MT, 2>(g, f1, out, n, h, w, c, d, s))
+  switch (tile) {
+    case 0: return PWC_BAND(2, 2);
+    case 1: return PWC_BAND(1, 2);
+    case 2: return PWC_BAND(1, 1);
+    case 3: return PWC_BAND(4, 1);
+    default: return cudaErrorInvalidValue;
+  }
+#undef PWC_BAND
+}
+
+// The tile and the channel slice of a bf16 K3 launch, set from
+// tools/tune_band.py's table of every plan at the train step's levels
+// (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): 4 x 16 pixels where
+// that puts a block on a third of the SMs (its f1 rows serve four output
+// rows), with 64-channel slices where C >= 64; else 1 x 16 pixels and
+// 32-channel slices. Returns qw (the slice is 32 qw channels); the tile in
+// *tile.
+int pick_bwd_band(int n, int h, int w, int c, int* tile) {
+  const long long blocks4 = static_cast<long long>(n) * cdiv(h, 4) *
+                            cdiv(w, 16);
+  if (blocks4 >= band::FILL / 3) return *tile = 3, c >= 64 ? 2 : 1;
+  return *tile = 2, 1;
+}
+
 }  // namespace
 
 // g: (n, h, w, (2d+1)^2); feat, out: (n, h, w, c); all contiguous, of one
@@ -180,13 +415,39 @@ extern "C" int pwc_cost_volume_bwd(const void* g, const void* feat, void* out,
                                    int which, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (which == 1)
+  if (which == 1) {
     e = is_bf16 ? dispatch<__nv_bfloat16, false>(g, feat, out, n, h, w, c, d, s)
                 : dispatch<float, false>(g, feat, out, n, h, w, c, d, s);
-  else if (which == 2)
-    e = is_bf16 ? dispatch<__nv_bfloat16, true>(g, feat, out, n, h, w, c, d, s)
-                : dispatch<float, true>(g, feat, out, n, h, w, c, d, s);
-  else
+  } else if (which == 2 && is_bf16) {
+    int tile;
+    const int qw = pick_bwd_band(n, h, w, c, &tile);
+    e = dispatch_band(static_cast<const bf16*>(g),
+                      static_cast<const bf16*>(feat), static_cast<bf16*>(out),
+                      n, h, w, c, d, tile, qw, s);
+  } else if (which == 2) {
+    e = dispatch<float, true>(g, feat, out, n, h, w, c, d, s);
+  } else {
     e = cudaErrorInvalidValue;
+  }
   return static_cast<int>(e);
+}
+
+// The bf16 K3's launch for a shape: the tile (0: 2 x 32 pixels, 1: 1 x 32,
+// 2: 1 x 16, 3: 4 x 16) in *tile; returns the 32-channel groups of a
+// block's slice.
+extern "C" int pwc_cost_volume_bwd_band_plan(int n, int h, int w, int c,
+                                             int* tile) {
+  return pick_bwd_band(n, h, w, c, tile);
+}
+
+// The bf16 K3 with the tile and the slice given, for tuning the plan
+// (tools/tune_band.py). g, f1, out as pwc_cost_volume_bwd's, bf16.
+extern "C" int pwc_cost_volume_bwd_f2_tiled(const void* g, const void* f1,
+                                            void* out, int n, int h, int w,
+                                            int c, int d, int tile, int qw,
+                                            void* stream) {
+  return static_cast<int>(dispatch_band(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(f1),
+      static_cast<bf16*>(out), n, h, w, c, d, tile, qw,
+      static_cast<cudaStream_t>(stream)));
 }

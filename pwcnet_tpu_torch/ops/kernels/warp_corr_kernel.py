@@ -9,6 +9,11 @@ on it, and push the warped tensor's gradient to f2 and the flow through the
 plain warp's autograd, as the JAX package leaves that part to XLA. The plain
 version is ``pwcnet_tpu_torch.ops.warp_corr.warp_corr_ref``.
 
+The bf16 kernel multiplies on the tensor cores as K1's banded products,
+with the B tile blended from the corners in the kernel; ``band_plan`` gives
+the tile and dy split a shape takes. The f32 kernel runs on the CUDA
+cores, the correctness path.
+
 K6p, the same kernel on a halo-extended shard (``_fused_forward(
 rows_prepadded=True)``, entry ``warp_corr_fused_prepadded``), is the second
 entry of ``csrc/warp_corr.cu``; it gathers the corners itself, with the
@@ -24,7 +29,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from pwcnet_tpu_torch.ops.kernels.build import load_library
+from pwcnet_tpu_torch.ops.kernels.build import aligned16, load_library
 from pwcnet_tpu_torch.ops.kernels.cost_volume_kernel import (
     _check_features, autograd_of, cost_volume_bwd_cuda)
 from pwcnet_tpu_torch.ops.warp import warp_bilinear
@@ -57,6 +62,18 @@ def _fwd_pre_fn():
     return fn
 
 
+def band_plan(n: int, h: int, w: int, d: int = 4) -> Tuple[str, int]:
+    """The bf16 K6's (and K6p's, at the shard's rows) launch at a shape: its
+    tile (rows x columns of output a block takes) and the number of blocks
+    the dy values are split over."""
+    fn = load_library("warp_corr").pwc_warp_corr_band_plan
+    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    fn.restype = _I
+    tile = _I()
+    groups = fn(n, h, w, d, ctypes.byref(tile))
+    return ("2x32", "1x32", "1x16", "4x16", "8x16")[tile.value], groups
+
+
 def warp_corr_cuda(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
                    max_displacement: int = 4) -> torch.Tensor:
     """K6: ``cost_volume(f1, warp_bilinear(f2, flow))`` for (N, H, W, C)
@@ -72,6 +89,8 @@ def warp_corr_cuda(f1: torch.Tensor, f2: torch.Tensor, flow: torch.Tensor,
     if tuple(flow.shape) != (n, h, w, 2) or not flow.is_contiguous():
         raise ValueError(f"flow {tuple(flow.shape)}: a contiguous "
                          f"{(n, h, w, 2)} expected")
+    if f1.dtype == torch.bfloat16:  # staged and gathered in 16-byte copies
+        f1, f2 = aligned16(f1), aligned16(f2)
     out = torch.empty((n, h, w, (2 * d + 1) ** 2), dtype=f1.dtype,
                       device=f1.device)
     with torch.cuda.device(f1.device):
@@ -108,6 +127,8 @@ def warp_corr_prepadded_cuda(f1: torch.Tensor, f2e: torch.Tensor,
         raise ValueError(f"row0={row0}, t={t}, h_global={h_global}, "
                          f"halo={halo}: a shard inside the image with "
                          "halo >= d expected")
+    if f1.dtype == torch.bfloat16:
+        f1, f2e = aligned16(f1), aligned16(f2e)
     out = torch.empty((n, t, w, (2 * d + 1) ** 2), dtype=f1.dtype,
                       device=f1.device)
     with torch.cuda.device(f1.device):

@@ -33,10 +33,11 @@ from pwcnet_tpu_torch.ops.warp import warp_bilinear, warp_ext_ref
 # The smallest level (H x W pixels) at which the model fuses by default:
 # chip_smoke.py's k6_crossover times K6 against warp_bilinear + K1 per
 # warped level of a 448x1024 pair and of the 8 x 384x448 train step (bf16,
-# NVIDIA H100 80GB HBM3, 700 W). K6's forward won at every measured level,
-# the smallest of which is 12 x 14 = 168 px; forward + backward, where the
-# two paths differ only by K6 - K1, it lost by a few percent. See PERF.md,
-# section 6.
+# NVIDIA H100 80GB HBM3, 700.00 W). With both on the tensor cores as banded
+# products, K6's forward still wins at every measured level, the smallest
+# of which is 12 x 14 = 168 px (by 7.4-31x: the composed path's warp is
+# plain torch); forward + backward, where the two paths differ only by
+# K6 - K1, it loses by at most 1.7%. See PERF.md, section 6.
 FUSED_MIN_PIXELS = 168
 
 

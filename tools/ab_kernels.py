@@ -10,12 +10,14 @@ its own process (both packages have one name), in the order parent, change,
 change, parent, so that drift of the card shows. A side builds its kernels
 and times them (bf16, CUDA events, ``chip_smoke.Timer``): K1 and K6 at the
 train step's and the 448x1024 pair's levels (K1 per level and summed per
-set: ``k1_train_sum``, ``k1_main_sum``); the stem forward K4 and
-backward K5 (``need_im=False``, the train step's form) on the train step's
-16 frames of 384x448; and, where the side has them, K1p and K6p at the
-512x1024 pair's levels under 2 shards and K7 at each conv of
-``K7_CHAIN``. Prints one JSON line per run (``k7_sum``: K7 summed over the
-chain); after each side's first run, the registers, spills and shared
+set: ``k1_train_sum``, ``k1_main_sum``, ``k6_train_sum``,
+``k6_main_sum``); K2 and K3 alone at the train step's levels
+(``k2_train_sum``, ``k3_train_sum``); the stem forward K4 and backward K5
+(``need_im=False``, the train step's form) on the train step's 16 frames
+of 384x448; and, where the side has them, K1p and K6p at the 512x1024
+pair's levels under 2 shards (``k1p_sum``, ``k6p_sum``) and K7 at each
+conv of ``K7_CHAIN``. Prints one JSON line per run (``k7_sum``: K7 summed
+over the chain); after each side's first run, the registers, spills and shared
 memory of every kernel entry (nvcc -Xptxas=-v), demangled where
 ``c++filt`` is found. Those first runs compile into a temporary directory,
 so that ptxas runs; the others use the checkout's build cache.
@@ -45,7 +47,7 @@ dev = torch.device("cuda")
 timer = cs.Timer()
 gen = torch.Generator(device=dev).manual_seed(0)
 out = {"root": sys.argv[1], "k1": {}, "k6": {}, "k1p": {}, "k6p": {},
-       "k7": {}}
+       "k7": {}, "k2": {}, "k3": {}}
 
 def rnd(shape):
     return torch.randn(shape, device=dev, generator=gen).bfloat16()
@@ -58,6 +60,11 @@ with torch.inference_mode():
             flow = cs.k6_flow(shape, "normal4", dev, gen)
             out["k6"][str(shape)] = timer(
                 lambda: wk.warp_corr_cuda(f1, f2, flow))
+    for shape in cs.CORR_TRAIN:  # K2 and K3 alone, as autograd asks
+        f1, f2, g = rnd(shape), rnd(shape), rnd(shape[:3] + (81,))
+        for key, need in (("k2", (True, False)), ("k3", (False, True))):
+            out[key][str(shape)] = timer(lambda: ck.cost_volume_bwd_cuda(
+                g, f1, f2, need_f1=need[0], need_f2=need[1]))
     for shape in getattr(cs, "K1P", {}).get(2, []):
         n, t, w, c = shape
         f1, f2e = rnd(shape), rnd((n, t + 8, w, c))
@@ -85,11 +92,17 @@ with torch.inference_mode():
             out["k7"][str((shape, co, stride))] = timer(
                 lambda: fk.conv_folded_cuda(x, w, b, stride, 0.1))
         out["k7_sum"] = sum(out["k7"].values())
-# K1 summed per set of levels (the per-level times are in "k1").
-for key, shapes in (("k1_train_sum", cs.CORR_TRAIN),
-                    ("k1_main_sum", cs.K1_MAIN)):
-    out[key] = sum(out["k1"][str(s)] for s in shapes)
+# Sums per set of levels (the per-level times are in "k1", "k6", "k2",
+# "k3").
+for key, kernel, shapes in (("k1_train_sum", "k1", cs.CORR_TRAIN),
+                            ("k1_main_sum", "k1", cs.K1_MAIN),
+                            ("k6_train_sum", "k6", cs.K6_TRAIN),
+                            ("k6_main_sum", "k6", cs.K6_MAIN),
+                            ("k2_train_sum", "k2", cs.CORR_TRAIN),
+                            ("k3_train_sum", "k3", cs.CORR_TRAIN)):
+    out[key] = sum(out[kernel][str(s)] for s in shapes)
 out["k1p_sum"] = sum(out["k1p"].values())
+out["k6p_sum"] = sum(out["k6p"].values())
 regs = {}
 for name in build.kernel_names():
     entry = None
