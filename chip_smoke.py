@@ -20,8 +20,9 @@ spatial path's halo-row kernels K1p and K6p and the small-channel conv K7
 against their plain versions, drives ``parallel.spatial_forward`` at
 512x1024 on 1 rank in this process and on 2 and 4 ranks (``gloo``
 processes sharing the card) against the unsharded forward, and times the
-kernels (K1, K6, K6p and K3 per level, with the plan of each bf16 launch:
-``k1_levels``, ``k6_levels``, ``k3_levels``), the forwards and the train
+kernels (K1, K6, K6p, K2 and K3 per level, with the plan of each bf16
+launch: ``k1_levels``, ``k6_levels``, ``k2_levels``, ``k3_levels``), the
+forwards and the train
 steps with CUDA events. Each phase prints one JSON line; any failure
 raises and the script exits non-zero. Without a CUDA device it exits 1 at
 once. The last line is ``{"ok": true,
@@ -79,7 +80,9 @@ K6_RAGGED = [(2, 7, 13, 5), (1, 9, 33, 196), (3, 20, 70, 32),
              (1, 16, 8192, 8)]
 # More K6 and K3 shapes, (shape, d): d < 4 at real widths (every tile of the
 # bf16 kernels), and W = 17 at C = 196 (one m16 tile and a ragged one) for
-# K3; drawn from their own generator after the other checks.
+# K3; drawn from their own generator after the other checks. K3_MORE also
+# checks K2 on the same draws: the bf16 K2 runs on K3's band tile, so these
+# cover its tiles, d < 4 and the ragged m16 tile too.
 K6_MORE = [((1, 28, 64, 96), 1), ((8, 24, 28, 96), 2), ((1, 14, 32, 128), 3),
            ((2, 7, 13, 5), 2)]
 K3_MORE = [((1, 5, 17, 196), 4), ((8, 12, 14, 128), 1), ((1, 28, 64, 96), 2),
@@ -365,7 +368,7 @@ def reset_launches(*modules) -> None:
 def check_corr_bwd(timer, dev, gen) -> dict:
     """k2_check / k3_check: the backward kernels against autograd through
     cost_volume_ref, same inputs and dtype, and a second call bit for bit
-    the same; times at the train shapes (K3 with the plan of its bf16
+    the same; times at the train shapes (with the plan of each bf16
     launch); then K3_MORE from their own generator."""
     from pwcnet_tpu_torch.ops.cost_volume import cost_volume_ref
     from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
@@ -404,8 +407,7 @@ def check_corr_bwd(timer, dev, gen) -> dict:
                             reps=20, inner=2),
                         bound_ms=b, bytes_ms=tb, ops_ms=to)
                     del out
-                    if i == 1:
-                        row["plan"] = ck.bwd_band_plan(*shape)
+                    row["plan"] = ck.bwd_band_plan(i + 1, *shape)
                     main[phase][shape] = row
                 emit(row)
                 if not rel <= tol:
@@ -422,6 +424,7 @@ def check_corr_bwd(timer, dev, gen) -> dict:
             g = torch.randn(shape[:3] + ((2 * d + 1) ** 2,), device=dev,
                             generator=more).to(dtype)
             got = ck.cost_volume_bwd_cuda(g, f1, f2, d)
+            again = ck.cost_volume_bwd_cuda(g, f1, f2, d)
             a1, a2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
             want = torch.autograd.grad(cost_volume_ref(a1, a2, d), (a1, a2),
                                        g)
@@ -429,12 +432,16 @@ def check_corr_bwd(timer, dev, gen) -> dict:
             tol = TOL[("corr_bwd", dtype)]
             for i, phase in enumerate(("k2_check", "k3_check")):
                 err, rel = rel_err(got[i], want[i])
+                same = torch.equal(got[i], again[i])
                 emit({"phase": phase, "shape": shape, "d": d,
                       "dtype": str(dtype), "max_abs_err": err,
-                      "rel_err": rel, "tol": tol})
+                      "rel_err": rel, "tol": tol, "repeat_identical": same})
                 if not rel <= tol:
                     raise AssertionError(f"{phase} disagrees at {shape}, "
                                          f"d={d} {dtype}: {rel} > {tol}")
+                if not same:
+                    raise AssertionError(f"{phase} at {shape}, d={d} "
+                                         f"{dtype}: two calls differ")
     return main
 
 
@@ -1862,13 +1869,15 @@ def main() -> int:
           "sum_ms": {k: sum(r["ms"] for r in v) for k, v in levels.items()},
           "sum_bound_ms": {k: sum(r["bound_ms"] for r in v)
                            for k, v in levels.items()}})
-    # K6 and K3 per level in the same form: K6 at the fused step's and the
-    # 448x1024 pair's warped levels and K6p at the S = 2 shards (tile, dy
-    # groups); K3 at the train step's levels (tile, channels a block takes).
+    # K6, K2 and K3 per level in the same form: K6 at the fused step's and
+    # the 448x1024 pair's warped levels and K6p at the S = 2 shards (tile,
+    # dy groups); K2 and K3 at the train step's levels (tile, channels a
+    # block takes).
     for phase, sets in (
             ("k6_levels", (("train", k6_timed["train"]),
                            ("main_448x1024", k6_timed["main"]),
                            ("k6p_s2", k6p_timed))),
+            ("k2_levels", (("train", corr_bwd_main["k2_check"]),)),
             ("k3_levels", (("train", corr_bwd_main["k3_check"]),))):
         levels = {name: [{k: r[k] for k in ("shape", "plan", "ms",
                                             "bound_ms", "plain_ms")}

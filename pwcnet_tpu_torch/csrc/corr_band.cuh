@@ -1,7 +1,7 @@
 // The banded correlation tile on Hopper's bf16 tensor cores (mma.sync
 // m16n8k16, f32 sums; the PTX helpers of conv3x3_mma.cuh). Shared by the
 // correlation forward K1/K1p (cost_volume.cu), the fused warp + correlation
-// K6/K6p (warp_corr.cu) and the correlation backward K3
+// K6/K6p (warp_corr.cu) and the correlation backward K2 and K3
 // (cost_volume_bwd.cu).
 //
 // Forward (K1, K6): for one output row, one m16 tile of f1 pixels x0..x0+15

@@ -84,10 +84,25 @@ def corr_band_ref(f1: torch.Tensor, f2: torch.Tensor,
     return (out / c).to(f1.dtype)
 
 
-# The bf16 K3's tiling: m16 tiles of output pixels, each the product of a
-# band of g with a window of f1 pixels 8 to the left and 16 + 8 to the right
-# of it (two k16 steps).
+# The bf16 K2's and K3's tiling: m16 tiles of output pixels, each the
+# product of a band of g with a window of feature pixels 8 to the left and
+# 16 + 8 to the right of it (two k16 steps).
 BWD_WINDOW = BAND_M + 16
+
+
+def corr_bwd_f1_band_ref(g: torch.Tensor, f2: torch.Tensor,
+                         max_displacement: int = 4) -> torch.Tensor:
+    """The bf16 K2's arithmetic (``csrc/cost_volume_bwd.cu``) in plain
+    torch, for the tests: df1 of the correlation for the output gradient g
+    (N, H, W, (2d+1)^2), as banded products. For each output row y, each
+    m-tile of 16 pixels x0..x0+15 (x0 a multiple of 16; past W zeros) and
+    each dy, the window is the 32 pixels x0-8..x0+23 of f2's row y + dy
+    (zeros outside the image), with C zero-padded to a multiple of 16; the
+    band A (16 x 32) holds A[i, j] = g[y, x_i, k(dy, x_j - x_i)] where
+    |x_j - x_i| <= d, else 0, and the tile gains A @ window. Sums in f32
+    over the 2d + 1 dy values, then times 1/C and rounded once to the
+    inputs' dtype. Nothing on the main path calls it."""
+    return _bwd_band(g, f2, max_displacement, of_f1=True)
 
 
 def corr_bwd_band_ref(g: torch.Tensor, f1: torch.Tensor,
@@ -103,32 +118,47 @@ def corr_bwd_band_ref(g: torch.Tensor, f1: torch.Tensor,
     tile gains A @ window. Sums in f32 over the 2d + 1 dy values, then
     times 1/C and rounded once to the inputs' dtype. Nothing on the main
     path calls it."""
-    d = max_displacement
+    return _bwd_band(g, f1, max_displacement, of_f1=False)
+
+
+def _bwd_band(g: torch.Tensor, feat: torch.Tensor, d: int,
+              of_f1: bool) -> torch.Tensor:
+    """The band of K2 (``of_f1``: feat = f2, the gradient of f1) or of K3
+    (feat = f1, the gradient of f2)."""
     if not 1 <= d <= 4:
         raise ValueError(f"the band covers 1 <= d <= 4, got {d}")
-    n, h, w, c = f1.shape
+    n, h, w, c = feat.shape
     s = 2 * d + 1
     if tuple(g.shape) != (n, h, w, s * s):
         raise ValueError(f"g {tuple(g.shape)}: {(n, h, w, s * s)} expected")
     tiles = -(-w // BAND_M)
     wp, cp = tiles * BAND_M, -(-c // 16) * 16
     cols = (8, wp - w + 8)  # the windows' reach beyond the tiles
-    f1p = F.pad(f1.float(), (0, cp - c, *cols, d, d))
-    gp = F.pad(g.float(), (0, 0, *cols, d, d))
-    i = torch.arange(BAND_M, device=f1.device)[:, None]
-    j = torch.arange(BWD_WINDOW, device=f1.device)[None, :]
-    dx = i + 8 - j  # x_i - x_j
+    fp = F.pad(feat.float(), (0, cp - c, *cols, d, d))
+    i = torch.arange(BAND_M, device=feat.device)[:, None]
+    j = torch.arange(BWD_WINDOW, device=feat.device)[None, :]
+    if of_f1:  # band row i: the taps of output pixel x_i
+        dx = j - i - 8  # x_j - x_i
+        gt = F.pad(g.float(), (0, 0, 0, wp - w)).view(n, h, tiles, BAND_M,
+                                                      s * s)
+    else:  # band column j: the taps of source pixel x_j
+        dx = i + 8 - j  # x_i - x_j
+        gp = F.pad(g.float(), (0, 0, *cols, d, d))
     band = (dx.abs() <= d).float()
-    out = torch.zeros(n, h, tiles, BAND_M, cp, device=f1.device)
+    out = torch.zeros(n, h, tiles, BAND_M, cp, device=feat.device)
     for dyi in range(s):
-        rows = slice(2 * d - dyi, 2 * d - dyi + h)  # ys = y - (dyi - d)
-        win = f1p[:, rows].unfold(2, BWD_WINDOW, BAND_M)  # (n,h,t,cp,32)
-        gwin = gp[:, rows].unfold(2, BWD_WINDOW, BAND_M)  # (n,h,t,81,32)
         k = dyi * s + (dx + d).clamp(0, s - 1)
-        a = gwin[..., k, j.expand_as(k)] * band  # (n, h, t, 16, 32)
-        out += torch.einsum("nhtij,nhtcj->nhtic", a, win)
+        # The window's row: f2's y + (dyi - d), or f1's ys = y - (dyi - d).
+        top = dyi if of_f1 else 2 * d - dyi
+        win = fp[:, top:top + h].unfold(2, BWD_WINDOW, BAND_M)  # (n,h,t,cp,32)
+        if of_f1:
+            a = gt[:, :, :, i, k]
+        else:
+            gwin = gp[:, top:top + h].unfold(2, BWD_WINDOW, BAND_M)
+            a = gwin[..., k, j.expand_as(k)]
+        out += torch.einsum("nhtij,nhtcj->nhtic", a * band, win)
     out = out.reshape(n, h, wp, cp)[:, :, :w, :c]
-    return (out * (1.0 / c)).to(f1.dtype)
+    return (out * (1.0 / c)).to(feat.dtype)
 
 
 def cost_volume_bwd_ref(g: torch.Tensor, f1: torch.Tensor, f2: torch.Tensor,

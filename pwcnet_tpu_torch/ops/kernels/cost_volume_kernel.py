@@ -5,9 +5,10 @@ Counterpart of ``pwcnet_tpu/ops/pallas/cost_volume_kernel.py``: the forward
 as banded products, whose plain model is
 ``pwcnet_tpu_torch.ops.cost_volume.corr_band_ref``) and the backward
 ``_corr_bwd_f1_kernel`` / ``_corr_bwd_f2_kernel`` (K2, K3,
-``csrc/cost_volume_bwd.cu``; the bf16 K3 on the tensor cores as the
-transposed band, whose plain model is
-``pwcnet_tpu_torch.ops.cost_volume.corr_bwd_band_ref``), tied together as
+``csrc/cost_volume_bwd.cu``; bf16 on the tensor cores as banded products on
+one tile, whose plain models are
+``pwcnet_tpu_torch.ops.cost_volume.corr_bwd_f1_band_ref`` and
+``corr_bwd_band_ref``), tied together as
 ``_cost_volume_pallas``'s ``custom_vjp`` ties them. The plain version is
 ``pwcnet_tpu_torch.ops.cost_volume.cost_volume_ref`` (its gradients are
 autograd's).
@@ -69,14 +70,16 @@ def band_plan(n: int, h: int, w: int, d: int = 4) -> Tuple[str, int]:
     return ("2x32", "1x32", "1x16")[tile.value], groups
 
 
-def bwd_band_plan(n: int, h: int, w: int, c: int) -> Tuple[str, int]:
-    """The bf16 K3's launch at a shape: its tile (rows x columns of output a
-    block takes) and the channels of a block's slice."""
+def bwd_band_plan(which: int, n: int, h: int, w: int,
+                  c: int) -> Tuple[str, int]:
+    """The bf16 K2's (``which`` 1) or K3's (2) launch at a shape: its tile
+    (rows x columns of output a block takes) and the channels of a block's
+    slice."""
     fn = load_library("cost_volume_bwd").pwc_cost_volume_bwd_band_plan
-    fn.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
+    fn.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     fn.restype = _I
     tile = _I()
-    qw = fn(n, h, w, c, ctypes.byref(tile))
+    qw = fn(which, n, h, w, c, ctypes.byref(tile))
     return ("2x32", "1x32", "1x16", "4x16")[tile.value], 32 * qw
 
 
@@ -158,7 +161,7 @@ def cost_volume_prepadded_cuda(f1: torch.Tensor, f2e: torch.Tensor,
 
 def _bwd_launch(g: torch.Tensor, feat: torch.Tensor, d: int,
                 which: int) -> torch.Tensor:
-    if which == 2 and feat.dtype == torch.bfloat16:  # 16-byte copies
+    if feat.dtype == torch.bfloat16:  # staged in 16- and 8-byte copies
         feat = aligned16(feat)
     n, h, w, c = feat.shape
     out = torch.empty_like(feat)

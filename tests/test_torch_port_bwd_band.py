@@ -1,14 +1,18 @@
-"""The plain models of the bf16 tilings of K3 and K6 held against the JAX
-package on the CPU.
+"""The plain models of the bf16 tilings of K2, K3 and K6 held against the
+JAX package on the CPU.
 
 ``corr_bwd_band_ref`` computes df2 of the correlation as the bf16 K3 does
 on the tensor cores: m16 tiles of output pixels, each the product of a band
 of g (16 x 32, the taps of each source pixel on a diagonal) with a 32-pixel
 window of f1, channels zero-padded to a multiple of 16, f32 sums over the
-dy values, one rounding. It is held against df2 of ``jax.vjp`` of the JAX
-package's ``cost_volume_lax`` at displacements 1..4 and ragged widths,
-absolute tolerance 1e-5 in f32 (only the order of the f32 sums differs) and
-one bf16 rounding in bf16.
+dy values, one rounding. ``corr_bwd_f1_band_ref`` computes df1 as the bf16
+K2 does, on the same tile: band row i holds the taps of output pixel i, and
+the window is f2's. Both are held against ``jax.vjp`` of the JAX package's
+``cost_volume_lax`` at displacements 1..4 and ragged widths, absolute
+tolerance 1e-5 in f32 (only the order of the f32 sums differs) and one
+bf16 rounding in bf16; K2's also against ``jax.vjp`` of the Pallas
+``cost_volume_pallas`` in interpret mode, whose backward runs
+``_corr_bwd_f1_kernel`` itself.
 
 The bf16 K6 is K1's band (``corr_band_ref``) with the warp's output as its
 B tile: ``corr_band_ref(f1, warp_bilinear(f2, flow))`` is held against
@@ -27,10 +31,14 @@ import pytest
 import torch
 
 from pwcnet_tpu.ops.cost_volume import cost_volume_lax
+from pwcnet_tpu.ops.pallas.cost_volume_kernel import (_bwd_tile_fits,
+                                                      cost_volume_pallas)
 from pwcnet_tpu.ops.pallas.warp_corr_kernel import (warp_corr_fused,
                                                     warp_corr_fused_prepadded)
 from pwcnet_tpu.parallel.halo import _warp_ext_corners
-from pwcnet_tpu_torch.ops.cost_volume import corr_band_ref, corr_bwd_band_ref
+from pwcnet_tpu_torch.ops.cost_volume import (corr_band_ref,
+                                              corr_bwd_band_ref,
+                                              corr_bwd_f1_band_ref)
 from pwcnet_tpu_torch.ops.warp import warp_bilinear, warp_ext_ref
 
 TOL = 1e-5
@@ -58,10 +66,13 @@ def _bwd_inputs(shape, d, seed):
     return f1, f2, g
 
 
-def _jax_df2(f1, f2, g, d, dtype=jnp.float32):
-    _, vjp = jax.vjp(lambda a, b: cost_volume_lax(a, b, d),
-                     jnp.asarray(f1, dtype), jnp.asarray(f2, dtype))
-    return np.asarray(vjp(jnp.asarray(g, dtype))[1].astype(jnp.float32))
+def _jax_grads(f1, f2, g, d, dtype=jnp.float32, corr=None):
+    """(df1, df2) of ``jax.vjp`` of the correlation (default
+    ``cost_volume_lax``), as f32 numpy arrays."""
+    corr = corr or (lambda a, b: cost_volume_lax(a, b, d))
+    _, vjp = jax.vjp(corr, jnp.asarray(f1, dtype), jnp.asarray(f2, dtype))
+    return [np.asarray(t.astype(jnp.float32))
+            for t in vjp(jnp.asarray(g, dtype))]
 
 
 # ---------------------------------------------------------------------------
@@ -73,7 +84,7 @@ def _jax_df2(f1, f2, g, d, dtype=jnp.float32):
 def test_bwd_band_matches_jax_vjp_per_displacement(shape, d):
     f1, f2, g = _bwd_inputs(shape, d, d)
     got = corr_bwd_band_ref(_t(g), _t(f1), d)
-    want = _jax_df2(f1, f2, g, d)
+    want = _jax_grads(f1, f2, g, d)[1]
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
 
@@ -83,7 +94,7 @@ def test_bwd_band_matches_jax_vjp_per_displacement(shape, d):
 def test_bwd_band_matches_jax_vjp_at_ragged_shapes(shape, d):
     f1, f2, g = _bwd_inputs(shape, d, 10 + d)
     got = corr_bwd_band_ref(_t(g), _t(f1), d)
-    np.testing.assert_allclose(got.numpy(), _jax_df2(f1, f2, g, d),
+    np.testing.assert_allclose(got.numpy(), _jax_grads(f1, f2, g, d)[1],
                                atol=TOL, rtol=0)
 
 
@@ -95,7 +106,7 @@ def test_bwd_band_in_bf16_rounds_once(shape):
     bf = [torch.from_numpy(a).bfloat16() for a in (f1, f2, g)]
     got = corr_bwd_band_ref(bf[2], bf[0])
     assert got.dtype == torch.bfloat16
-    want = _jax_df2(*(t.float().numpy() for t in bf), 4)
+    want = _jax_grads(*(t.float().numpy() for t in bf), 4)[1]
     got = got.float().numpy()
     assert (np.abs(got - want) <= BF16_STEP * np.abs(want) + 1e-6).all()
 
@@ -104,6 +115,66 @@ def test_bwd_band_rejects_a_gradient_of_another_shape():
     f1 = torch.zeros(1, 4, 16, 8)
     with pytest.raises(ValueError, match="expected"):
         corr_bwd_band_ref(torch.zeros(1, 4, 16, 49), f1, 4)
+
+
+# ---------------------------------------------------------------------------
+# K2: corr_bwd_f1_band_ref
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+@pytest.mark.parametrize("shape", [(2, 9, 37, 24), (1, 6, 16, 8)])
+def test_f1_band_matches_jax_vjp_per_displacement(shape, d):
+    f1, f2, g = _bwd_inputs(shape, d, 20 + d)
+    got = corr_bwd_f1_band_ref(_t(g), _t(f2), d)
+    want = _jax_grads(f1, f2, g, d)[0]
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("shape", RAGGED)
+def test_f1_band_matches_jax_vjp_at_ragged_shapes(shape, d):
+    f1, f2, g = _bwd_inputs(shape, d, 30 + d)
+    got = corr_bwd_f1_band_ref(_t(g), _t(f2), d)
+    np.testing.assert_allclose(got.numpy(), _jax_grads(f1, f2, g, d)[0],
+                               atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 40, 64), (1, 5, 17, 196)])
+def test_f1_band_in_bf16_rounds_once(shape):
+    """bf16 inputs: f32 products and sums, then one rounding, so each value
+    is within one bf16 step of JAX's f32 df1 of the same bf16 values."""
+    f1, f2, g = _bwd_inputs(shape, 4, 31)
+    bf = [torch.from_numpy(a).bfloat16() for a in (f1, f2, g)]
+    got = corr_bwd_f1_band_ref(bf[2], bf[1])
+    assert got.dtype == torch.bfloat16
+    want = _jax_grads(*(t.float().numpy() for t in bf), 4)[0]
+    got = got.float().numpy()
+    assert (np.abs(got - want) <= BF16_STEP * np.abs(want) + 1e-6).all()
+
+
+@pytest.mark.parametrize("shape,d", [((1, 6, 20, 24), 4), ((1, 5, 17, 8), 2)])
+def test_f1_band_matches_jax_pallas_kernel(shape, d):
+    """Against ``jax.vjp`` of the Pallas correlation in interpret mode: at
+    N = 1 (no width packing) and a backward tile that fits, its backward is
+    ``_corr_bwd_f1_kernel`` (df1) and ``_corr_bwd_f2_kernel`` (df2), so
+    the K3 band model is held against the latter on the way."""
+    _, _, w, c = shape
+    assert _bwd_tile_fits(w, c, d, 4)  # the Pallas backward, not lax's
+    f1, f2, g = _bwd_inputs(shape, d, 40 + d)
+    df1, df2 = _jax_grads(f1, f2, g, d, corr=lambda a, b: cost_volume_pallas(
+        a, b, max_displacement=d, interpret=True))
+    np.testing.assert_allclose(corr_bwd_f1_band_ref(_t(g), _t(f2), d),
+                               df1, atol=TOL, rtol=0)
+    np.testing.assert_allclose(corr_bwd_band_ref(_t(g), _t(f1), d), df2,
+                               atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("g_shape", [(1, 4, 16, 49), (1, 4, 15, 81)])
+def test_f1_band_rejects_a_gradient_of_another_shape(g_shape):
+    f2 = torch.zeros(1, 4, 16, 8)
+    with pytest.raises(ValueError, match="expected"):
+        corr_bwd_f1_band_ref(torch.zeros(g_shape), f2, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -178,23 +249,36 @@ def test_warped_band_prepadded_matches_jax_fused_prepadded(kind, row0):
 # On the card: the bf16 kernels against their plain models
 # ---------------------------------------------------------------------------
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d", [1, 4])
-@pytest.mark.parametrize("shape", RAGGED + [(8, 12, 14, 128)])
-def test_k3_kernel_matches_its_band_model(shape, d):
-    """The bf16 K3 against corr_bwd_band_ref (f32 sums in another order,
-    one rounding each: one bf16 step of the largest value), and a second
-    call bit for bit the same."""
+def _bwd_kernel_vs_model(shape, d, which):
+    """The bf16 K2 (which = 1) or K3 (2) against its band model (f32 sums
+    in another order, one rounding each: one bf16 step of the largest
+    value), and a second call bit for bit the same."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
     f1, f2, g = (_t(a).cuda().bfloat16() for a in _bwd_inputs(shape, d, 60))
-    got = ck.cost_volume_bwd_cuda(g, f1, f2, d, need_f1=False)[1]
-    again = ck.cost_volume_bwd_cuda(g, f1, f2, d, need_f1=False)[1]
-    want = corr_bwd_band_ref(g, f1, d).float()
+    need = (which == 1, which == 2)
+    got, again = (ck.cost_volume_bwd_cuda(g, f1, f2, d, *need)[which - 1]
+                  for _ in range(2))
+    want = (corr_bwd_f1_band_ref(g, f2, d) if which == 1
+            else corr_bwd_band_ref(g, f1, d)).float()
     torch.cuda.synchronize()
     assert (got.float() - want).abs().max() <= BF16_STEP * want.abs().max()
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("shape", RAGGED + [(8, 12, 14, 128)])
+def test_k3_kernel_matches_its_band_model(shape, d):
+    _bwd_kernel_vs_model(shape, d, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4])
+@pytest.mark.parametrize("shape", RAGGED + [(8, 12, 14, 128)])
+def test_k2_kernel_matches_its_band_model(shape, d):
+    _bwd_kernel_vs_model(shape, d, 1)
 
 
 @pytest.mark.cuda

@@ -11,10 +11,11 @@ change, parent, so that drift of the card shows. A side builds its kernels
 and times them (bf16, CUDA events, ``chip_smoke.Timer``): K1 and K6 at the
 train step's and the 448x1024 pair's levels (K1 per level and summed per
 set: ``k1_train_sum``, ``k1_main_sum``, ``k6_train_sum``,
-``k6_main_sum``); K2 and K3 alone at the train step's levels
-(``k2_train_sum``, ``k3_train_sum``); the stem forward K4 and backward K5
-(``need_im=False``, the train step's form) on the train step's 16 frames
-of 384x448; and, where the side has them, K1p and K6p at the 512x1024
+``k6_main_sum``); K2 and K3 alone at the train step's levels, per level
+(``k2``, ``k3``: the parent's and the change's time at each level of the
+same run) and summed (``k2_train_sum``, ``k3_train_sum``); the stem
+forward K4 and backward K5 (``need_im=False``, the train step's form) on
+the train step's 16 frames of 384x448; and, where the side has them, K1p and K6p at the 512x1024
 pair's levels under 2 shards (``k1p_sum``, ``k6p_sum``) and K7 at each
 conv of ``K7_CHAIN``. Prints one JSON line per run (``k7_sum``: K7 summed
 over the chain); after each side's first run, the registers, spills and shared

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time every launch plan of the bf16 banded kernels K6 and K3 on one GPU.
+"""Time every launch plan of the bf16 banded kernels K6, K2 and K3 on one GPU.
 
     python3 tools/tune_band.py [--out FILE]
 
@@ -8,8 +8,8 @@ warped levels 5..2) and of a 448x1024 pair (``K6_MAIN``, K6 only), and for
 K6 at the 512x1024 pair's S = 2 shard levels (``K6P[2]``, through the
 unsharded entry at the shard's shape), the script runs the kernel under
 every plan that its explicit-plan entry takes (K6: tile x dy groups,
-``pwc_warp_corr_fwd_tiled``; K3: tile x channel slice,
-``pwc_cost_volume_bwd_f2_tiled``), holds each result against the plain
+``pwc_warp_corr_fwd_tiled``; K2 and K3: tile x channel slice,
+``pwc_cost_volume_bwd_tiled``), holds each result against the plain
 version within ``chip_smoke.TOL`` and times it with ``chip_smoke.Timer``
 (CUDA events). It prints one JSON line per kernel and level: the ms of
 each plan, the fastest, and the plan that ``pick_wc_band`` /
@@ -39,8 +39,8 @@ from pwcnet_tpu_torch.ops.warp_corr import warp_corr_ref  # noqa: E402
 
 K6_TILES = ("2x32", "1x32", "1x16", "4x16", "8x16")
 K6_GROUPS = (1, 3, 9)
-K3_TILES = ("2x32", "1x32", "1x16", "4x16")
-K3_SLICES = (32, 64)
+BWD_TILES = ("2x32", "1x32", "1x16", "4x16")
+BWD_SLICES = (32, 64)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -51,9 +51,9 @@ def k6_fn():
     return fn
 
 
-def k3_fn():
-    fn = build.load_library("cost_volume_bwd").pwc_cost_volume_bwd_f2_tiled
-    fn.argtypes = [_P] * 3 + [_I] * 7 + [_P]
+def bwd_fn():
+    fn = build.load_library("cost_volume_bwd").pwc_cost_volume_bwd_tiled
+    fn.argtypes = [_P] * 3 + [_I] * 8 + [_P]
     fn.restype = _I
     return fn
 
@@ -89,7 +89,7 @@ def main() -> int:
     dtype = torch.bfloat16
     tol = cs.TOL[("corr", dtype)]
     rows = []
-    k6, k3 = k6_fn(), k3_fn()
+    k6, kb = k6_fn(), bwd_fn()
     with torch.inference_mode():
         k6_sets = (("train", cs.K6_TRAIN), ("main_448x1024", cs.K6_MAIN),
                    ("k6p_s2_shape", cs.K6P[2]))
@@ -119,31 +119,35 @@ def main() -> int:
                        "plan": "%s/%d" % wk.band_plan(n, h, w)}
                 print(json.dumps(row), flush=True)
                 rows.append(row)
-    # K3's plain version is autograd: outside inference mode.
+    # K2 (which 1: f2 staged, df1 out) and K3 (which 2: f1 staged, df2
+    # out); their plain version is autograd: outside inference mode.
     for shape in cs.CORR_TRAIN:
         n, h, w, c = shape
         f1, f2 = (torch.randn(shape, device=dev, generator=gen).to(dtype)
                   for _ in range(2))
         g = torch.randn(shape[:3] + (81,), device=dev,
                         generator=gen).to(dtype)
-        want = cost_volume_bwd_ref(g, f1, f2, 4, False, True)[1]
-        o = torch.empty_like(want)
-        ms = {}
-        for ti, tile in enumerate(K3_TILES):
-            for cb in K3_SLICES:
-                def call():
-                    return run(k3, o, g.data_ptr(), f1.data_ptr(),
-                               o.data_ptr(), n, h, w, c, 4, ti, cb // 32)
-                rel = cs.rel_err(call(), want)[1]
-                if not rel <= cs.TOL[("corr_bwd", dtype)]:
-                    raise AssertionError(f"K3 {tile}/{cb} at {shape}: "
-                                         f"{rel}")
-                ms[f"{tile}/{cb}"] = timer(call)
-        row = {"kernel": "k3", "set": "train", "shape": shape, "ms": ms,
-               "best": min(ms, key=ms.get),
-               "plan": "%s/%d" % ck.bwd_band_plan(n, h, w, c)}
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        grads = cost_volume_bwd_ref(g, f1, f2, 4)
+        for which, feat in ((1, f2), (2, f1)):
+            want = grads[which - 1]
+            o = torch.empty_like(want)
+            ms = {}
+            for ti, tile in enumerate(BWD_TILES):
+                for cb in BWD_SLICES:
+                    def call():
+                        return run(kb, o, g.data_ptr(), feat.data_ptr(),
+                                   o.data_ptr(), n, h, w, c, 4, which, ti,
+                                   cb // 32)
+                    rel = cs.rel_err(call(), want)[1]
+                    if not rel <= cs.TOL[("corr_bwd", dtype)]:
+                        raise AssertionError(f"K{which + 1} {tile}/{cb} at "
+                                             f"{shape}: {rel}")
+                    ms[f"{tile}/{cb}"] = timer(call)
+            row = {"kernel": f"k{which + 1}", "set": "train", "shape": shape,
+                   "ms": ms, "best": min(ms, key=ms.get),
+                   "plan": "%s/%d" % ck.bwd_band_plan(which, n, h, w, c)}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     with open(out_path, "w") as f:
         json.dump({"nvidia_smi": smi, "rows": rows, "ptxas": ptxas}, f,
