@@ -1,11 +1,14 @@
 """Command line of the port (counterpart of ``pwcnet_tpu/cli.py``):
 
-    python -m pwcnet_tpu_torch.cli train   --preset synthetic-proof [--max-steps N] [section.field=value ...]
-    python -m pwcnet_tpu_torch.cli eval    --preset synthetic-proof [--ckpt DIR] [--split val] [...]
+    python -m pwcnet_tpu_torch.cli train   --preset chairs-1chip [--max-steps N] data.root=DIR [section.field=value ...]
+    python -m pwcnet_tpu_torch.cli eval    --preset sintel-eval [--ckpt DIR] [--split val] data.root=DIR [...]
     python -m pwcnet_tpu_torch.cli predict --im1 a.png --im2 b.png [--ckpt DIR] [--out flow.flo] [--vis flow.png]
     python -m pwcnet_tpu_torch.cli config  --preset synthetic-proof [...]
 
-It runs on the GPU; ``PWCNET_PLATFORM=cpu`` selects the CPU (the plain
+The presets are the JAX package's PWC-Net presets (``config.PRESETS``):
+the file datasets read the tree under ``data.root``; ``synthetic-proof``
+and ``synthetic-hard`` need none. It runs on the GPU;
+``PWCNET_PLATFORM=cpu`` selects the CPU (the plain
 versions of the kernels). With no GPU and no such setting it raises.
 ``--ckpt`` is a directory of the port's ``CheckpointManager``
 (``step_<n>.pt``); an Orbax directory of the JAX package is refused.

@@ -1,6 +1,6 @@
 """Config tree of the port: the JAX package's dataclasses (counterpart of
 ``pwcnet_tpu/config.py``, which imports JAX through ``data.augment`` and so
-cannot be imported here) and its synthetic presets.
+cannot be imported here) and its PWC-Net presets.
 
 Field names and defaults are the JAX package's, so a config reads the same
 in both. ``apply_overrides`` applies the CLI's ``section.field=value``
@@ -23,9 +23,9 @@ __all__ = ["AugmentConfig", "Config", "DataConfig", "ModelConfig",
 
 @dataclass(frozen=True)
 class AugmentConfig:
-    """Fields of ``pwcnet_tpu/data/augment.py:AugmentConfig``. The trainer
-    reads ``crop_hw`` (the size of device-generated batches); the
-    augmentation itself is not ported yet (ROADMAP A1)."""
+    """Fields of ``pwcnet_tpu/data/augment.py:AugmentConfig``: the training
+    augmentation (``data/augment.py``), whose ``crop_hw`` is also the size
+    of device-generated synthetic batches."""
     crop_hw: Tuple[int, int] = (384, 448)
     hflip_prob: float = 0.5
     vflip_prob: float = 0.1
@@ -113,9 +113,33 @@ class Config:
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
 
-# The JAX package's synthetic presets (procedural pairs with exact GT; no
-# dataset files). The file-dataset presets come with the datasets.
+# The JAX package's PWC-Net presets, field for field (``raft-chairs`` comes
+# with RAFT, ROADMAP A5). The file presets read the datasets under their
+# ``data.root``; the synthetic ones render procedural pairs with exact
+# ground truth on the device.
 PRESETS = {
+    "chairs-1chip": Config(
+        train=TrainConfig(global_batch=8, log_dir="runs/chairs"),
+    ),
+    "chairs-quick": Config(
+        train=TrainConfig(
+            global_batch=4,
+            schedule=ScheduleConfig(base_lr=1e-4, milestones=(800, 900),
+                                    total_steps=1000),
+            summary_interval=20, eval_interval=200, checkpoint_interval=200,
+            eval_limit=64, log_dir="runs/chairs-quick"),
+    ),
+    "things-ft": Config(
+        data=DataConfig(name="flyingthings", root="/data/FlyingThings3D",
+                        crop_hw=(384, 768), sample_hw=(540, 960)),
+        train=TrainConfig(global_batch=8, schedule=S_FINE, loss="multiscale",
+                          log_dir="runs/things-ft"),
+    ),
+    "sintel-eval": Config(
+        data=DataConfig(name="sintel", root="/data/Sintel",
+                        sample_hw=(448, 1024)),
+        train=TrainConfig(log_dir="runs/sintel-eval"),
+    ),
     "synthetic-proof": Config(
         data=DataConfig(name="synthetic", root="-", crop_hw=(384, 448),
                         sample_hw=(384, 448), eval_batch=8, device_gen=True),
@@ -140,6 +164,12 @@ PRESETS = {
             summary_interval=200, eval_interval=2500,
             checkpoint_interval=5000, eval_limit=512,
             log_dir="runs/synthetic-hard"),
+    ),
+    "kitti-multihost": Config(
+        data=DataConfig(name="kitti", root="/data/KITTI2015",
+                        crop_hw=(320, 896), sample_hw=(384, 1280)),
+        train=TrainConfig(global_batch=16, schedule=S_FINE, loss="robust",
+                          log_dir="runs/kitti-ft"),
     ),
 }
 

@@ -1,1 +1,2 @@
-"""Training data of the port (the procedural synthetic pairs)."""
+"""Training and evaluation data of the port: the dataset readers, the
+host Loader, the device augmentation and the procedural synthetic pairs."""

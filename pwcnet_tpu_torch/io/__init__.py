@@ -10,5 +10,6 @@ from pwcnet_tpu_torch.io.flow_io import (  # noqa: F401
     write_kitti_png,
     write_pfm,
 )
-from pwcnet_tpu_torch.io.png import read_png, write_png  # noqa: F401
+from pwcnet_tpu_torch.io.png import (read_png, read_ppm, write_png,  # noqa: F401
+                                     write_ppm)
 from pwcnet_tpu_torch.io.vis import flow_to_rgb, make_color_wheel  # noqa: F401

@@ -5,7 +5,7 @@ JAX package's codecs), which the GPU machine does not have. PNG: 8- and
 16-bit samples, gray, RGB and RGBA, non-interlaced; reading undoes all five
 row filters, writing uses filter 0. Other PNGs (palette, gray + alpha,
 interlaced) raise. Arrays are (H, W) for gray and (H, W, channels)
-otherwise, uint8 or uint16. PPM: binary (P6), 8-bit.
+otherwise, uint8 or uint16. PPM: binary (P6), 8-bit, read and written.
 """
 
 from __future__ import annotations
@@ -163,3 +163,15 @@ def read_ppm(path: str) -> np.ndarray:
                          f"maxval {maxval})")
     return np.frombuffer(data, np.uint8, count=h * w * 3,
                          offset=pos + 1).reshape(h, w, 3)
+
+
+def write_ppm(path: str, img: np.ndarray) -> None:
+    """Encode uint8 (H, W, 3) as a binary 8-bit PPM (P6)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[-1] != 3:
+        raise ValueError(f"PPM takes uint8 (H, W, 3), got {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    with open(path, "wb") as f:
+        f.write(b"P6\n%d %d\n255\n" % (w, h) + np.ascontiguousarray(
+            img).tobytes())

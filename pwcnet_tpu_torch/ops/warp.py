@@ -43,8 +43,10 @@ def warp_bilinear(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         + flow[..., 0].float()
     ys = torch.arange(h, device=dev, dtype=torch.float32).view(1, h, 1) \
         + flow[..., 1].float()
-    x0 = torch.floor(xs)
-    y0 = torch.floor(ys)
+    # A NaN flow gathers at index 0 and keeps NaN weights, so the output
+    # is NaN there (as JAX's clamped gather gives), not an index fault.
+    x0 = torch.floor(xs).nan_to_num(nan=0.0)
+    y0 = torch.floor(ys).nan_to_num(nan=0.0)
     wx = (xs - x0).unsqueeze(-1)
     wy = (ys - y0).unsqueeze(-1)
     flat = feat.reshape(n, h * w, c).float()

@@ -3,7 +3,9 @@ single device).
 
 A train step is forward, loss, ``backward()`` (through the kernels' autograd
 Functions on the GPU), optional clipping, the optimizer update and one
-scheduler step. Its metrics are the JAX step's: ``loss``, ``train_epe``
+scheduler step, after the augmentation of the batch when the step has one
+(``data/augment.py``, drawn on the ``TrainState``'s generator). Its
+metrics are the JAX step's: ``loss``, ``train_epe``
 (the finest flow, in full-resolution pixels, against the mask-weighted
 downsampled ground truth) and ``grad_norm`` (the global norm of the raw
 gradients, before clipping). They stay on the device as 0-d tensors; the
@@ -16,6 +18,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from pwcnet_tpu_torch.config import AugmentConfig
+from pwcnet_tpu_torch.data.augment import augment_batch
 from pwcnet_tpu_torch.losses import (LEVEL_WEIGHTS, downsample_gt, epe,
                                      fl_outliers, multiscale_loss,
                                      robust_loss)
@@ -42,19 +46,23 @@ def _make_loss(loss_kind: str, flow_scale: float,
 def make_train_step(model, optimizer, scheduler,
                     loss_kind: str = "multiscale",
                     level_weights: Optional[Sequence[float]] = None,
-                    grad_clip: float = 0.0, aug=None
+                    grad_clip: float = 0.0,
+                    aug: Optional[AugmentConfig] = None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch) -> (state, metrics)``; ``batch`` holds f32 im1,
     im2 (N, H, W, 3), flow (N, H, W, 2) and valid (N, H, W) on the model's
-    device. ``state`` is advanced in place and returned."""
-    if aug is not None:
-        raise NotImplementedError("augment_batch comes with the file "
-                                  "datasets (ROADMAP A1)")
+    device. With ``aug``, the step first augments the batch: the scalars
+    drawn on ``state.generator`` (CPU), the noise on the model's device from
+    a generator seeded by a draw of the same, so a restored state replays
+    the augmentation. ``state`` is advanced in place and returned."""
     loss_fn = _make_loss(loss_kind, model.flow_scale, level_weights)
     params = [p for p in model.parameters() if p.requires_grad]
+    noise_gen = torch.Generator(device=model.device) if aug else None
 
     def step(state: TrainState, batch: Batch):
+        if aug is not None:
+            batch = augment_batch(batch, state.generator, aug, noise_gen)
         optimizer.zero_grad(set_to_none=True)
         flows = model(batch["im1"], batch["im2"])
         loss = loss_fn(flows, batch["flow"], batch["valid"])

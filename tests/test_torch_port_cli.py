@@ -255,10 +255,25 @@ def test_synthetic_val_samples_match_jax(regime):
     np.testing.assert_array_equal(again["flow"], got[0]["flow"])
 
 
-def test_get_dataset_refuses_the_file_datasets():
-    assert tbase.available_datasets() == ["synthetic"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        tbase.get_dataset("flyingchairs", "/data")
+def test_get_dataset_refuses_the_file_datasets(tmp_path):
+    """get_dataset refuses a file dataset without its files, and builds
+    each from a tree in its layout (``tests/test_torch_port_data.py`` holds
+    the readers against the JAX package's)."""
+    from pwcnet_tpu_torch.data import trees
+    assert tbase.available_datasets() == ["flyingchairs", "flyingthings",
+                                          "kitti", "sintel", "synthetic"]
+    with pytest.raises(FileNotFoundError, match="FlyingChairs"):
+        tbase.get_dataset("flyingchairs", str(tmp_path / "absent"))
+    roots = {
+        "flyingchairs": trees.write_chairs(str(tmp_path / "c"), 3, (8, 12)),
+        "flyingthings": trees.write_things(str(tmp_path / "t"), 2, (8, 12)),
+        "sintel": trees.write_sintel(str(tmp_path / "s"), 2, 2, (8, 12)),
+        "kitti": trees.write_kitti(str(tmp_path / "k"), 3, (8, 12)),
+    }
+    for name, root in roots.items():
+        ds = tbase.get_dataset(name, root, split="all")
+        assert isinstance(ds, tbase.FlowDataset) and len(ds) >= 2
+        assert ds[0]["flow"].shape == (8, 12, 2)
     assert isinstance(tbase.get_dataset("synthetic", "-", split="val",
                                         val_length=2), tbase.FlowDataset)
 

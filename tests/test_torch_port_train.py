@@ -410,23 +410,48 @@ def test_checkpoint_manager_keeps_the_newest(tmp_path):
     assert state.step == 2
 
 
+def _changed(cfg, change):
+    return dataclasses.replace(cfg, **{
+        sec: dataclasses.replace(getattr(cfg, sec), **kw)
+        for sec, kw in change.items()})
+
+
 @pytest.mark.parametrize("change", [
-    dict(data=dict(device_gen=False)),
-    dict(data=dict(name="flyingchairs")),
     dict(parallel=dict(data=2)),
     dict(parallel=dict(spatial=2)),
-    dict(train=dict(debug_nans=True)),
-    dict(train=dict(profile_dir="prof")),
     dict(train=dict(loss="sequence")),
     dict(model=dict(family="raft")),
 ])
 def test_train_raises_for_what_is_not_ported(tmp_path, change):
-    cfg = _tiny_cfg(tmp_path)
-    cfg = dataclasses.replace(cfg, **{
-        sec: dataclasses.replace(getattr(cfg, sec), **kw)
-        for sec, kw in change.items()})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = _changed(_tiny_cfg(tmp_path), change)
+    with pytest.raises(NotImplementedError, match="ROADMAP A[5-9]"):
         train(cfg, max_steps=3, device="cpu")
+
+
+@pytest.mark.parametrize("case", ["device_gen_false", "flyingchairs",
+                                  "debug_nans", "profile_dir"])
+def test_train_runs_what_was_not_ported(tmp_path, chairs_dir, case):
+    """What raised before the file datasets and the trainer's debug
+    switches were ported now trains: synthetic pairs through the Loader and
+    the augmentation, a FlyingChairs tree (native decoder), the NaN checks
+    (silent on finite data, and off again afterwards) and the profiler
+    (a trace in profile_dir)."""
+    change = {
+        "device_gen_false": dict(data=dict(device_gen=False,
+                                           sample_hw=(64, 64))),
+        "flyingchairs": dict(data=dict(name="flyingchairs", root=chairs_dir,
+                                       sample_hw=(64, 96))),
+        "debug_nans": dict(train=dict(debug_nans=True)),
+        "profile_dir": dict(train=dict(profile_dir=str(tmp_path / "prof"))),
+    }[case]
+    cfg = _changed(_tiny_cfg(tmp_path / "run"), change)
+    final = train(cfg, max_steps=2, device="cpu")
+    assert final["step"] == 2
+    assert np.isfinite([final["loss"], final["train_epe"],
+                        final["grad_norm"]]).all()
+    assert not torch.is_anomaly_enabled()
+    if case == "profile_dir":
+        assert list((tmp_path / "prof").glob("*.pt.trace.json"))
 
 
 def test_train_runs_the_periodic_eval(tmp_path):
@@ -456,11 +481,39 @@ def test_train_without_device_raises_when_there_is_no_gpu(tmp_path):
         train(_tiny_cfg(tmp_path), max_steps=1)
 
 
-def test_train_step_refuses_augmentation():
-    model = PWCNet(device="cpu", num_levels=2, output_level=1)
-    opt, sched = make_optimizer(model.parameters(), ScheduleConfig())
-    with pytest.raises(NotImplementedError, match="augment"):
-        make_train_step(model, opt, sched, aug=object())
+def test_train_step_refuses_augmentation(one_thread):
+    """The step refuses a crop larger than its batch, and otherwise
+    augments: with a deterministic augmentation (hflip always, no vflip,
+    no photometric jitter, the crop the whole sample) a step on a batch
+    equals, bit for bit, an unaugmented step on the batch flipped by hand
+    (u negated)."""
+    from pwcnet_tpu_torch.config import AugmentConfig
+    rng = np.random.default_rng(9)
+    batch = {"im1": _t(rng.random((2, 32, 48, 3), np.float32)),
+             "im2": _t(rng.random((2, 32, 48, 3), np.float32)),
+             "flow": _t(rng.standard_normal((2, 32, 48, 2)).astype(
+                 np.float32)),
+             "valid": _t((rng.random((2, 32, 48)) > 0.2).astype(
+                 np.float32))}
+    flipped = {k: v.flip(2) for k, v in batch.items()}
+    flipped["flow"] = flipped["flow"] * torch.tensor([-1.0, 1.0])
+    aug = AugmentConfig(crop_hw=(32, 48), hflip_prob=1.0, vflip_prob=0.0,
+                        photometric=False)
+    metrics = []
+    for a, b in ((aug, batch), (None, flipped)):
+        model = PWCNet(device="cpu", num_levels=3, output_level=2,
+                       generator=torch.Generator().manual_seed(0))
+        opt, sched = make_optimizer(model.parameters(), ScheduleConfig())
+        step = make_train_step(model, opt, sched, aug=a)
+        state = TrainState.create(model, opt, sched, seed=1)
+        if a is not None:
+            too_big = make_train_step(model, opt, sched, aug=AugmentConfig(
+                crop_hw=(64, 48)))
+            with pytest.raises(ValueError, match="larger than the samples"):
+                too_big(state, batch)
+        _, m = step(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    assert metrics[0] == metrics[1]
 
 
 def test_eval_step_counts():

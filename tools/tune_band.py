@@ -4,9 +4,11 @@
     python3 tools/tune_band.py [--out FILE]
 
 For each level of the train step (``chip_smoke.CORR_TRAIN``; K6 at the
-warped levels 5..2) and of a 448x1024 pair (``K6_MAIN``, K6 only), and for
-K6 at the 512x1024 pair's S = 2 shard levels (``K6P[2]``, through the
-unsharded entry at the shard's shape), the script runs the kernel under
+warped levels 5..2) and of a 448x1024 pair (``K6_MAIN``, K6 only), for K6
+at the 512x1024 pair's S = 2 shard levels (``K6P[2]``, through the
+unsharded entry at the shard's shape), and for K2 and K3 also at the
+levels of the things-ft (8 x 384x768) and kitti-multihost (16 x 320x896)
+crops (``chip_smoke.level_shapes``), the script runs the kernel under
 every plan that its explicit-plan entry takes (K6: tile x dy groups,
 ``pwc_warp_corr_fwd_tiled``; K2 and K3: tile x channel slice,
 ``pwc_cost_volume_bwd_tiled``), holds each result against the plain
@@ -121,7 +123,11 @@ def main() -> int:
                 rows.append(row)
     # K2 (which 1: f2 staged, df1 out) and K3 (which 2: f1 staged, df2
     # out); their plain version is autograd: outside inference mode.
-    for shape in cs.CORR_TRAIN:
+    bwd_sets = (("train", cs.CORR_TRAIN),
+                ("things_ft", cs.level_shapes(8, (384, 768))),
+                ("kitti_multihost", cs.level_shapes(16, (320, 896))))
+    for set_name, shape in ((k, sh) for k, shapes in bwd_sets
+                            for sh in shapes):
         n, h, w, c = shape
         f1, f2 = (torch.randn(shape, device=dev, generator=gen).to(dtype)
                   for _ in range(2))
@@ -143,7 +149,8 @@ def main() -> int:
                         raise AssertionError(f"K{which + 1} {tile}/{cb} at "
                                              f"{shape}: {rel}")
                     ms[f"{tile}/{cb}"] = timer(call)
-            row = {"kernel": f"k{which + 1}", "set": "train", "shape": shape,
+            row = {"kernel": f"k{which + 1}", "set": set_name,
+                   "shape": shape,
                    "ms": ms, "best": min(ms, key=ms.get),
                    "plan": "%s/%d" % ck.bwd_band_plan(which, n, h, w, c)}
             print(json.dumps(row), flush=True)
