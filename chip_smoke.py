@@ -23,11 +23,16 @@ processes sharing the card) against the unsharded forward, and times the
 kernels (K1, K6, K6p, K2 and K3 per level, with the plan of each bf16
 launch: ``k1_levels``, ``k6_levels``, ``k2_levels``, ``k3_levels``), the
 forwards and the train
-steps with CUDA events. Each phase prints one JSON line; any failure
-raises and the script exits non-zero. Without a CUDA device it exits 1 at
-once. The last line is ``{"ok": true,
-"device": {...}}``; every phase's result, the predicted flows and the
-trainer's logs go to ``DIR`` (default ``build/chip_smoke``).
+steps with CUDA events. Then RAFT at full width: K1-K3 at its shapes
+(``raft_kernels``, and K2 + K3 against the plain autograd backward), the
+repo's trained checkpoint at 448x1024 (24 K1 per forward) with its val EPE
+on synthetic-proof, its f32 forward against the CPU's, the trainer with the
+sequence loss (24 of each of K1-K3 per step), and the command line's RAFT
+``train``, ``predict`` and ``match``. Each phase prints one JSON line;
+any failure raises and the script exits non-zero. Without a CUDA device it
+exits 1 at once. The last line is ``{"ok": true, "device": {...}}``; every
+phase's result, the predicted flows and the trainer's logs go to ``DIR``
+(default ``build/chip_smoke``).
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -35,6 +40,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -728,6 +734,33 @@ def train_config(name: str, **train_kw):
         cfg.train, log_dir=os.path.join(RUN_DIR, name), **train_kw))
 
 
+def one_step_grads(model, train_cfg, batch, loss_kind="multiscale",
+                   im_noise=0.0, seed=0):
+    """One train step of ``model`` from a fresh state on a copy of ``batch``
+    (CPU tensors, moved to the model's device): its metrics, and every
+    parameter's gradient on the CPU. With ``im_noise``, frame 1 is first
+    scaled by 1 + im_noise * N(0, 1) (CPU draw ``seed``)."""
+    from pwcnet_tpu_torch.train.schedule import optimizer_from_config
+    from pwcnet_tpu_torch.train.state import TrainState
+    from pwcnet_tpu_torch.train.step import make_train_step
+    opt, sched = optimizer_from_config(model.parameters(), train_cfg)
+    step_fn = make_train_step(model, opt, sched, loss_kind=loss_kind)
+    batch = {k: v.clone() for k, v in batch.items()}
+    if im_noise:
+        gen = torch.Generator().manual_seed(seed)
+        batch["im1"] *= 1 + im_noise * torch.randn(batch["im1"].shape,
+                                                   generator=gen)
+    _, m = step_fn(TrainState.create(model, opt, sched, seed=1),
+                   {k: v.to(model.device) for k, v in batch.items()})
+    return ({k: float(v) for k, v in m.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+def grad_rel(a, b) -> dict:
+    """Per parameter, max|a - b| / max|b|."""
+    return {n: rel_err(a[n], b[n])[1] for n in b}
+
+
 def train_phases(out_dir: str, dev, smi: str, timer) -> dict:
     """train_steps, overfit, train_f32_card_vs_cpu, train_times."""
     import shutil
@@ -822,20 +855,8 @@ def train_phases(out_dir: str, dev, smi: str, timer) -> dict:
         model = PWCNet(corr_backend="fused", fused_min_pixels=0,
                        device=where) if fused else build_model(cfg32, where)
         model.load_state_dict(ref_state)
-        opt, sched = optimizer_from_config(model.parameters(), cfg32.train)
-        step_fn = make_train_step(model, opt, sched)
-        batch = {k: v.clone() for k, v in small.items()}
-        if im_noise:
-            gen = torch.Generator().manual_seed(seed)
-            batch["im1"] *= 1 + im_noise * torch.randn(batch["im1"].shape,
-                                                       generator=gen)
-        _, m = step_fn(TrainState.create(model, opt, sched, seed=1),
-                       {k: v.to(where) for k, v in batch.items()})
-        return ({k: float(v) for k, v in m.items()},
-                {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
-
-    def grad_rel(a, b):
-        return {n: rel_err(a[n], b[n])[1] for n in b}
+        return one_step_grads(model, cfg32.train, small, im_noise=im_noise,
+                              seed=seed)
 
     m_cpu, g_cpu = f32_step("cpu")
     m_card, g_card = f32_step(dev)
@@ -2076,6 +2097,26 @@ def profile_dir_phase(roots: dict) -> None:
                              f"{named}")
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def run_cli(*args):
+    """``python -m pwcnet_tpu_torch.cli *args`` in a subprocess on the card,
+    from the repo root: (its last output line as JSON, seconds)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("PWCNET_PLATFORM", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pwcnet_tpu_torch.cli",
+                           *args], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {args[0]} failed ({proc.returncode}):"
+                             f"\n{proc.stdout[-2000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    return (json.loads(proc.stdout.strip().splitlines()[-1]),
+            time.perf_counter() - t0)
+
+
 def cli_phase(out_dir: str, roots: dict) -> None:
     """cli: the command line in subprocesses, on the card: predict on the
     repo's parity pair (.flo and --vis PNG), eval of the fused config on 16
@@ -2085,21 +2126,8 @@ def cli_phase(out_dir: str, roots: dict) -> None:
     Sintel tree's val scene (436x1024, padded to 448x1024)."""
     import shutil
     from pwcnet_tpu_torch.io import read_flo, read_png
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=root)
-    env.pop("PWCNET_PLATFORM", None)
-
-    def run(*args):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "pwcnet_tpu_torch.cli",
-                               *args], cwd=root, env=env, capture_output=True,
-                              text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"cli {args[0]} failed ({proc.returncode}):"
-                                 f"\n{proc.stdout[-2000:]}\n"
-                                 f"{proc.stderr[-4000:]}")
-        return (json.loads(proc.stdout.strip().splitlines()[-1]),
-                time.perf_counter() - t0)
+    root = ROOT
+    run = run_cli
 
     fixtures = os.path.join(root, "tests", "fixtures", "parity")
     flo = os.path.join(out_dir, "cli_predict.flo")
@@ -2153,6 +2181,431 @@ def cli_phase(out_dir: str, roots: dict) -> None:
     if not (pred_ok and ev_ok and train_ok and chairs_ok and sintel_ok):
         raise AssertionError("the command line's predict, eval or train "
                              "gave a wrong result")
+
+
+# RAFT at full width (128-channel features, hidden 96, context 64, radius 4,
+# 12 iterations). K1-K3 at its correlation shapes: the 1/8 and 1/16
+# features of a 448x1024 pair (inference) and of raft-chairs' 8 x 384x448
+# (training), and the 1/16 features of a 368x496 input (ragged).
+RAFT_INFER = [(1, 56, 128, 128), (1, 28, 64, 128)]
+RAFT_TRAIN = [(8, 48, 56, 128), (8, 24, 28, 128)]
+RAFT_RAGGED = [(1, 23, 31, 128)]
+RAFT_SEED = 10  # the raft_kernels draws' own generator
+RAFT_NPZ = os.path.join(ROOT, "runs", "raft-synthetic",
+                        "params_step20000_bf16.npz")
+RAFT_ITERS = 12
+RAFT_FWD_LAUNCHES = {"corr_fwd": 2 * RAFT_ITERS}
+RAFT_TRAIN_LAUNCHES = {"corr_fwd": 2 * RAFT_ITERS,
+                       "corr_bwd_f1": 2 * RAFT_ITERS,
+                       "corr_bwd_f2": 2 * RAFT_ITERS}
+RAFT_TRAIN_STEPS = 6
+# The trained checkpoint's val EPE on synthetic-proof's val split (128
+# samples, 384x448): its TPU run read 0.0897; a convention fault (u/v, the
+# warp's direction, the upsampling) shows as pixels.
+RAFT_EPE_MAX = 0.15
+INSCAN_TOL = 2e-4  # sequence vs sequence_inscan: loss, grad_norm (JAX's)
+RAFT_OVERFIT_STEPS = 60
+RAFT_OVERFIT_RATIO = 0.35  # JAX tests/test_raft.py::test_overfit
+
+
+@contextlib.contextmanager
+def no_plain_correlation():
+    """While open, the plain correlation raises: a run inside it goes
+    through the correlation kernels only."""
+    import importlib
+    from unittest import mock
+    import pwcnet_tpu_torch.models.raft as raft_mod
+    # The module: the package ``ops`` exports a function of the same name.
+    cv = importlib.import_module("pwcnet_tpu_torch.ops.cost_volume")
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain correlation ran on the card's path")
+
+    with mock.patch.object(cv, "cost_volume_ref", refuse), \
+            mock.patch.object(raft_mod, "cost_volume_ref", refuse):
+        yield
+
+
+def raft_kernels(timer, dev) -> dict:
+    """raft_kernels: K1, K2 and K3 at RAFT's correlation shapes (C = 128,
+    d = 4), bf16 and f32, each against its plain version (K2, K3: autograd
+    of cost_volume_ref); at the bf16 inference and train shapes the plan,
+    time, bound and plain time of each; at the train shapes K2 + K3 in one
+    call against cost_volume_bwd_ref, the plain autograd backward (what the
+    JAX model's bwd="lax" pin would be here)."""
+    from pwcnet_tpu_torch.ops.cost_volume import (cost_volume_bwd_ref,
+                                                  cost_volume_ref)
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    gen = torch.Generator(device=dev).manual_seed(RAFT_SEED)
+    rows = {"corr_fwd": {}, "corr_bwd_f1": {}, "corr_bwd_f2": {}}
+    vs_plain = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in RAFT_INFER + RAFT_TRAIN + RAFT_RAGGED:
+            f1 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            f2 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+            g = torch.randn(shape[:3] + (81,), device=dev,
+                            generator=gen).to(dtype)
+            with torch.inference_mode():
+                got = {"corr_fwd": ck.cost_volume_cuda(f1, f2)}
+                want = {"corr_fwd": cost_volume_ref(f1, f2)}
+            got["corr_bwd_f1"], got["corr_bwd_f2"] = ck.cost_volume_bwd_cuda(
+                g, f1, f2)
+            a1, a2 = f1.clone().requires_grad_(), f2.clone().requires_grad_()
+            out = cost_volume_ref(a1, a2)
+            want["corr_bwd_f1"], want["corr_bwd_f2"] = torch.autograd.grad(
+                out, (a1, a2), g, retain_graph=True)
+            torch.cuda.synchronize()
+            timed = dtype == torch.bfloat16 and shape not in RAFT_RAGGED
+            for name in rows:
+                err, rel = rel_err(got[name], want[name])
+                tol = TOL[("corr" if name == "corr_fwd" else "corr_bwd",
+                           dtype)]
+                row = {"phase": "raft_kernels", "kernel": name,
+                       "shape": shape, "dtype": str(dtype),
+                       "max_abs_err": err, "rel_err": rel, "tol": tol}
+                if timed:
+                    if name == "corr_fwd":
+                        nbytes, flops = corr_cost(shape, dtype)
+                        plan = ck.band_plan(*shape[:3])
+                        with torch.inference_mode():
+                            ms = timer(lambda: ck.cost_volume_cuda(f1, f2))
+                            plain = timer(lambda: cost_volume_ref(f1, f2),
+                                          inner=2)
+                    else:
+                        i = int(name == "corr_bwd_f2")
+                        nbytes, flops = corr_bwd_cost(shape, dtype)
+                        plan = ck.bwd_band_plan(i + 1, *shape)
+                        ms = timer(lambda: ck.cost_volume_bwd_cuda(
+                            g, f1, f2, need_f1=i == 0, need_f2=i == 1))
+                        plain = timer(lambda: torch.autograd.grad(
+                            out, (a1, a2)[i], g, retain_graph=True), inner=2)
+                    b, tb, to = bound_ms(nbytes, flops, dtype)
+                    row.update(plan=plan, ms=ms, plain_ms=plain, bound_ms=b,
+                               bytes_ms=tb, ops_ms=to)
+                    rows[name][shape] = row
+                emit(row)
+                if not rel <= tol:
+                    raise AssertionError(f"{name} disagrees at RAFT's {shape} "
+                                         f"{dtype}: {rel} > {tol}")
+            if timed and shape in RAFT_TRAIN:
+                k23 = timer(lambda: ck.cost_volume_bwd_cuda(g, f1, f2))
+                plain = timer(lambda: cost_volume_bwd_ref(g, f1, f2),
+                              inner=2)
+                vs_plain.append({"shape": shape, "k2_k3_ms": k23,
+                                 "plain_backward_ms": plain,
+                                 "plain_over_kernels": plain / k23})
+            del out
+    emit({"phase": "raft_bwd_vs_plain", "dtype": "bfloat16",
+          "rows": vs_plain,
+          "sum_k2_k3_ms": sum(r["k2_k3_ms"] for r in vs_plain),
+          "sum_plain_backward_ms": sum(r["plain_backward_ms"]
+                                       for r in vs_plain)})
+    return rows
+
+
+def raft_model(dtype, device):
+    """The port's RAFT at full width with the repo's trained weights."""
+    from pwcnet_tpu_torch.compat import load_flax_params, read_flax_npz
+    from pwcnet_tpu_torch.models import RAFT
+    model = RAFT(dtype=dtype, device=device)
+    load_flax_params(model, read_flax_npz(RAFT_NPZ))
+    return model.eval()
+
+
+def raft_forward(dev, timer, smi) -> dict:
+    """raft_forward: the trained checkpoint (bf16) at 448x1024 with the
+    launches of one forward (24 K1, no plain correlation), its times at
+    batch 1 and 4 (wall, CUDA-event device time, profiler busy time, idle
+    share) and predict_flow's; the f32 card forward against the CPU's per
+    iteration on a smooth synthetic pair; evaluate_dataset on
+    synthetic-proof's val split."""
+    from pwcnet_tpu_torch import predict_flow
+    from pwcnet_tpu_torch.config import PRESETS
+    from pwcnet_tpu_torch.data.base import get_dataset
+    from pwcnet_tpu_torch.data.synthetic import SyntheticFlow
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.train.evaluate import evaluate_dataset
+    model = raft_model(torch.bfloat16, dev)
+    s = SyntheticFlow(split="val", hw=(448, 1024))[0]
+    im1 = torch.tensor(s["im1"], device=dev)[None]
+    im2 = torch.tensor(s["im2"], device=dev)[None]
+
+    def fwd(a, b):
+        return model(a, b, train=False)
+
+    with torch.inference_mode():
+        fwd(im1, im2)  # warm-up
+        torch.cuda.synchronize()
+        with no_plain_correlation():
+            reset_launches(ck)
+            flows = fwd(im1, im2)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in ck.LAUNCHES.items() if v}
+        flow = flows[-1][0].float().cpu().numpy()
+        finite = bool(np.isfinite(flow).all())
+        epe = float(np.sqrt(((flow - s["flow"]) ** 2).sum(-1)).mean())
+        b1_wall = wall_ms(lambda: fwd(im1, im2), reps=10)
+        b1_dev = timer(lambda: fwd(im1, im2), reps=10, inner=1)
+        b1_busy, b1_n, top = profile_kernels(lambda: fwd(im1, im2))
+        im1_4, im2_4 = im1.repeat(4, 1, 1, 1), im2.repeat(4, 1, 1, 1)
+        b4_wall = wall_ms(lambda: fwd(im1_4, im2_4), reps=5)
+        b4_dev = timer(lambda: fwd(im1_4, im2_4), reps=5, inner=1)
+        b4_busy = profile_kernels(lambda: fwd(im1_4, im2_4))[0]
+    predict_wall = wall_ms(lambda: predict_flow(model, s["im1"], s["im2"]),
+                           reps=10)
+    emit({"phase": "raft_forward", "dtype": "bfloat16", "hw": [448, 1024],
+          "iters": RAFT_ITERS, "launches": launches, "finite": finite,
+          "flow_shape": list(flows[-1].shape), "epe_sample0": epe,
+          "ms_per_frame_batch1_wall": b1_wall,
+          "ms_per_frame_batch1_device": b1_dev,
+          "device_busy_ms_batch1": b1_busy,
+          "idle_share_of_wall_batch1": 1 - b1_busy / b1_wall,
+          "kernel_launches_batch1": b1_n, "top": top,
+          "ms_batch4_wall": b4_wall, "ms_batch4_device": b4_dev,
+          "device_busy_ms_batch4": b4_busy,
+          "idle_share_of_wall_batch4": 1 - b4_busy / b4_wall,
+          "frames_per_s_batch4_wall": 4e3 / b4_wall,
+          "predict_flow_ms_wall": predict_wall, "nvidia_smi": smi})
+    if not finite or tuple(flows[-1].shape) != (1, 448, 1024, 2):
+        raise AssertionError(f"bad RAFT flow: finite={finite} "
+                             f"{tuple(flows[-1].shape)}")
+    if launches != RAFT_FWD_LAUNCHES:
+        raise AssertionError(f"expected {RAFT_FWD_LAUNCHES} per RAFT forward,"
+                             f" got {launches}")
+
+    # f32, card kernels against the CPU's plain ops, every iteration.
+    v = SyntheticFlow(split="val", hw=(384, 448))[2]
+    a, b = (torch.tensor(v[k])[None] for k in ("im1", "im2"))
+    with torch.inference_mode():
+        f_cpu = raft_model(torch.float32, "cpu")(a, b)
+        f_card = raft_model(torch.float32, dev)(a.to(dev), b.to(dev))
+    per_iter = [rel_err(g.cpu(), w)[1] for g, w in zip(f_card, f_cpu)]
+    emit({"phase": "raft_forward_f32_card_vs_cpu", "hw": [384, 448],
+          "rel_err_per_iteration": per_iter, "tol": FWD_TOL})
+    if not max(per_iter) <= FWD_TOL:
+        raise AssertionError(f"RAFT card and CPU forwards disagree: "
+                             f"{max(per_iter)}")
+
+    # The trained checkpoint on synthetic-proof's val split, as its
+    # trainer's periodic eval reads it (bf16, batch 8, 128 samples).
+    cfg = PRESETS["synthetic-proof"]
+    ds = get_dataset(cfg.data.name, cfg.data.root, split="val",
+                     hw=cfg.data.sample_hw, regime=cfg.data.synthetic_regime,
+                     val_length=cfg.data.synthetic_val_length)
+    t0 = time.perf_counter()
+    ev = evaluate_dataset(model, ds, batch=cfg.data.eval_batch,
+                          limit=cfg.train.eval_limit)
+    emit({"phase": "raft_eval", "checkpoint": os.path.relpath(RAFT_NPZ, ROOT),
+          "dataset": "synthetic-proof val, 384x448", "dtype": "bfloat16",
+          "seconds": time.perf_counter() - t0, "epe_max": RAFT_EPE_MAX, **ev})
+    if not (ev["num_samples"] == cfg.train.eval_limit
+            and ev["epe"] < RAFT_EPE_MAX):
+        raise AssertionError(f"RAFT val EPE {ev['epe']} on "
+                             f"{ev['num_samples']} samples")
+    return {"launches": launches, "ms_per_frame_batch1_wall": b1_wall}
+
+
+def raft_config(name: str, loss: str = "sequence", **train_kw):
+    """synthetic-proof with RAFT and a sequence loss, logging under
+    RUN_DIR/name."""
+    import dataclasses
+    cfg = train_config(name, loss=loss, **train_kw)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, family="raft"))
+
+
+def raft_train(out_dir: str, dev, smi: str, timer) -> dict:
+    """raft_train: train() with RAFT (bf16, 8 x 384x448, sequence loss):
+    finite metrics, 24 launches of each of K1-K3 per step and no plain
+    correlation, a checkpoint round trip bit for bit and a resume; the
+    step's wall, device span, busy time and idle share; one f32 step on the
+    card against the CPU; sequence against sequence_inscan on the card; an
+    overfit on a constant flow."""
+    import dataclasses
+    import shutil
+    from pwcnet_tpu_torch.data.synthetic import make_device_batcher
+    from pwcnet_tpu_torch.losses import sequence_loss
+    from pwcnet_tpu_torch.models import RAFT
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
+    from pwcnet_tpu_torch.train.loop import build_model, train
+    from pwcnet_tpu_torch.train.schedule import optimizer_from_config
+    from pwcnet_tpu_torch.train.state import TrainState
+    from pwcnet_tpu_torch.train.step import make_train_step
+
+    cfg = raft_config("raft_train", summary_interval=1)
+    shutil.rmtree(cfg.train.log_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    reset_launches(ck)
+    t0 = time.perf_counter()
+    with no_plain_correlation():
+        final = train(cfg, max_steps=RAFT_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    per_step = {k: v / RAFT_TRAIN_STEPS for k, v in ck.LAUNCHES.items() if v}
+    recs = _metrics(cfg.train.log_dir)
+    steps = [{k: r[k] for k in ("step", "loss", "train_epe", "grad_norm",
+                                "pairs_per_sec")} for r in recs]
+    finite = _finite_steps(recs)
+    ckpt = CheckpointManager(os.path.join(cfg.train.log_dir, "ckpt"))
+    model = build_model(cfg)
+    fresh = TrainState.create(model, *optimizer_from_config(
+        model.parameters(), cfg.train), seed=cfg.train.seed + 1)
+    ckpt.restore(fresh)
+    saved = ckpt.load()["model"]
+    restored = (fresh.step == RAFT_TRAIN_STEPS and all(
+        torch.equal(v.cpu(), saved[k]) for k, v in
+        fresh.model.state_dict().items()))
+    resumed = train(cfg, max_steps=2)["step"]
+    shutil.copy(os.path.join(cfg.train.log_dir, "metrics.jsonl"),
+                os.path.join(out_dir, "raft_train_metrics.jsonl"))
+    shutil.rmtree(cfg.train.log_dir)
+
+    # The step alone, on one device-rendered batch.
+    opt, sched = optimizer_from_config(model.parameters(), cfg.train)
+    state = TrainState.create(model, opt, sched, seed=1)
+    step_fn = make_train_step(model, opt, sched, loss_kind="sequence")
+    batch = make_device_batcher(cfg.train.global_batch,
+                                cfg.data.augment.crop_hw, seed=5,
+                                device=dev)(0)
+
+    def one_step():
+        step_fn(state, batch)
+
+    step_wall = wall_ms(one_step, reps=5)
+    step_dev = timer(one_step, reps=5, inner=1)
+    busy, n_launch, top = profile_kernels(one_step, n=2)
+    emit({"phase": "raft_train", "config": "synthetic-proof, RAFT, "
+          f"sequence, bf16, batch {cfg.train.global_batch}, "
+          f"{cfg.data.augment.crop_hw}", "steps": steps, "final": final,
+          "wall_s": wall_s, "launches_per_step": per_step, "finite": finite,
+          "restored": restored, "resumed_to_step": resumed,
+          "ms_per_step_wall": step_wall, "ms_per_step_device": step_dev,
+          "pairs_per_s_wall": cfg.train.global_batch * 1e3 / step_wall,
+          "device_busy_ms_per_step": busy,
+          "idle_share_of_wall": 1 - busy / step_wall,
+          "kernel_launches_per_step": n_launch, "top": top,
+          "nvidia_smi": smi})
+    if not finite or len(steps) != RAFT_TRAIN_STEPS:
+        raise AssertionError(f"RAFT train steps not finite: {steps}")
+    if per_step != RAFT_TRAIN_LAUNCHES:
+        raise AssertionError(f"expected {RAFT_TRAIN_LAUNCHES} per RAFT train "
+                             f"step, got {per_step}")
+    if not restored or resumed != RAFT_TRAIN_STEPS + 2:
+        raise AssertionError(f"RAFT checkpoint round trip failed: restored="
+                             f"{restored}, resumed to {resumed}")
+
+    # One f32 step (TF32 off), card against CPU, same weights and batch.
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32"))
+    small = make_device_batcher(2, (128, 160), seed=6, device="cpu")(0)
+    ref_state = build_model(cfg32, "cpu").state_dict()
+
+    def f32_step(where, im_noise=0.0, seed=0, loss_kind="sequence"):
+        m = build_model(cfg32, where)
+        m.load_state_dict(ref_state)
+        return one_step_grads(m, cfg32.train, small, loss_kind, im_noise,
+                              seed)
+
+    m_cpu, g_cpu = f32_step("cpu")
+    m_card, g_card = f32_step(dev)
+    floor = max(max(grad_rel(f32_step("cpu", 1e-6, s)[1], g_cpu).values())
+                for s in range(3))
+    metric_rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+                  for k in m_cpu}
+    vs_cpu = grad_rel(g_card, g_cpu)
+    tol = max(TRAIN_TOL, FLOOR_FACTOR * floor)
+    # sequence against sequence_inscan on the card (f32, same weights and
+    # batch): the loss summed inside the loop equals the external one.
+    m_inscan = f32_step(dev, loss_kind="sequence_inscan")[0]
+    inscan_rel = {k: abs(m_inscan[k] - m_card[k]) / abs(m_card[k])
+                  for k in ("loss", "grad_norm")}
+    emit({"phase": "raft_train_f32_card_vs_cpu", "batch": [2, 128, 160],
+          "metrics_cpu": m_cpu, "metrics_card": m_card,
+          "metric_rel_err": metric_rel, "metric_tol": TRAIN_TOL,
+          "grad_rel_err_vs_cpu_max": max(vs_cpu.values()),
+          "grad_rel_err_vs_cpu_worst3": sorted(
+              vs_cpu.items(), key=lambda t: -t[1])[:3],
+          "cpu_floor_1e-6": floor, "grad_tol": tol,
+          "metrics_card_inscan": m_inscan, "inscan_rel_err": inscan_rel,
+          "inscan_tol": INSCAN_TOL})
+    if not (max(metric_rel.values()) <= TRAIN_TOL
+            and max(vs_cpu.values()) <= tol):
+        raise AssertionError("RAFT f32 train step: card and CPU disagree "
+                             "beyond the tolerances")
+    if not max(inscan_rel.values()) <= INSCAN_TOL:
+        raise AssertionError(f"sequence and sequence_inscan disagree on the "
+                             f"card: {inscan_rel}")
+
+    # Overfit a constant flow, as JAX tests/test_raft.py::test_overfit: the
+    # flow is refined at 1/8 resolution, and a constant is representable.
+    gen = torch.Generator().manual_seed(0)
+    im1, im2 = (torch.rand((1, 32, 32, 3), generator=gen).to(dev)
+                for _ in range(2))
+    gt = torch.tensor([3.0, -2.0], device=dev).expand(1, 32, 32, 2)
+    m = RAFT(num_iters=4, corr_radius=2, device=dev)
+    opt = torch.optim.Adam(m.parameters(), lr=1e-3)
+    losses = []
+    for _ in range(RAFT_OVERFIT_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = sequence_loss(m(im1, im2), gt)
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    emit({"phase": "raft_overfit", "steps": RAFT_OVERFIT_STEPS,
+          "losses": losses[::10] + losses[-1:],
+          "ratio": losses[-1] / losses[0], "max_ratio": RAFT_OVERFIT_RATIO})
+    if not (np.isfinite(losses).all()
+            and losses[-1] < RAFT_OVERFIT_RATIO * losses[0]):
+        raise AssertionError(f"RAFT overfit: {losses[::10]}")
+    return {"launches_per_step": per_step, "ms_per_step_wall": step_wall}
+
+
+def raft_cli(out_dir: str, roots: dict) -> None:
+    """raft_cli: the command line with RAFT, in subprocesses on the card:
+    train --preset raft-chairs on the chairs tree, crossing eval_interval
+    once; predict with model.family=raft; match with RAFT and with
+    PWC-Net on the repo's parity pair."""
+    import shutil
+    from pwcnet_tpu_torch.io import read_flo
+    fixtures = os.path.join(ROOT, "tests", "fixtures", "parity")
+    pair = ("--im1", os.path.join(fixtures, "im1.png"), "--im2",
+            os.path.join(fixtures, "im2.png"))
+    log_dir = os.path.join(RUN_DIR, "cli_raft_chairs")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    final, train_s = run_cli("train", "--preset", "raft-chairs",
+                             "--max-steps", "4",
+                             f"data.root={roots['chairs']}",
+                             "train.eval_interval=3", "train.eval_limit=8",
+                             "train.summary_interval=2",
+                             f"train.log_dir={log_dir}")
+    vals = [r for r in _metrics(log_dir) if "val_epe" in r]
+    shutil.rmtree(log_dir)
+    val_steps = [r["step"] for r in vals]
+    train_ok = (final["step"] == 4 and val_steps == [3] and bool(np.isfinite(
+        [final["loss"], final["train_epe"], final["grad_norm"],
+         vals[0]["val_epe"]]).all()))
+    flo = os.path.join(out_dir, "cli_raft_predict.flo")
+    pred, pred_s = run_cli("predict", *pair, "--out", flo,
+                           "model.family=raft")
+    flow = read_flo(flo)
+    pred_ok = flow.shape == (128, 160, 2) and bool(np.isfinite(flow).all())
+    matches = {}
+    for family in ("raft", "pwcnet"):
+        txt = os.path.join(out_dir, f"cli_match_{family}.txt")
+        out, secs = run_cli("match", *pair, "--out", txt,
+                            f"model.family={family}")
+        rows = np.loadtxt(txt, ndmin=2)
+        matches[family] = dict(out, seconds=secs, rows=len(rows),
+                               ok=out["num_matches"] == len(rows) and bool(
+                                   np.isfinite(rows).all()))
+    emit({"phase": "raft_cli", "train_raft_chairs": final,
+          "train_val": vals, "train_ok": train_ok,
+          "train_s": train_s, "predict": pred, "predict_ok": pred_ok,
+          "predict_s": pred_s, "match": matches})
+    if not (train_ok and pred_ok and all(m["ok"] for m in matches.values())):
+        raise AssertionError("the command line's RAFT train, predict or "
+                             "match gave a wrong result")
 
 
 def main() -> int:
@@ -2393,6 +2846,13 @@ def main() -> int:
         debug_nans_phase(roots, dev)
         profile_dir_phase(roots)
         cli_phase(out_dir, roots)
+
+        # -- 5d. RAFT at full width: K1-K3 at its shapes, the trained
+        # checkpoint's forward and eval, the trainer, the command line -----
+        raft_rows = raft_kernels(timer, dev)
+        raft_fwd = raft_forward(dev, timer, smi)
+        raft_tr = raft_train(out_dir, dev, smi, timer)
+        raft_cli(out_dir, roots)
     finally:
         shutil.rmtree(tree_dir, ignore_errors=True)
         shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -2437,6 +2897,21 @@ def main() -> int:
               conv_folded_kernel.REPLACES, k7["rows"],
               {"conv_folded": k7["launches"]}),
     ]
+    # K1-K3 on RAFT's path: its launches per forward (448x1024) and per
+    # train step (8 x 384x448), and the sums over its two scales (bf16).
+    for k in kernels[:3]:
+        rs = raft_rows[k["name"]]
+        k["raft"] = {
+            "launches_per_forward": raft_fwd["launches"].get(k["name"], 0),
+            "launches_per_train_step": raft_tr["launches_per_step"][
+                k["name"]]}
+        for label, shapes in (("train", RAFT_TRAIN), ("448x1024", RAFT_INFER)):
+            for key in ("ms", "bound_ms", "plain_ms"):
+                k["raft"][f"{key}_{label}"] = sum(rs[sh][key] for sh in shapes)
+    emit({"phase": "raft_levels", "levels": {
+        name: [{k: r[k] for k in ("shape", "plan", "ms", "bound_ms",
+                                  "plain_ms")} for r in rs.values()]
+        for name, rs in raft_rows.items()}})
     # K1 per level (bf16): the train step's, the 448x1024 pair's and K1p's
     # at the S = 2 shards, with the tile each launch takes.
     levels = {name: [{k: r[k] for k in ("shape", "plan", "ms", "bound_ms",

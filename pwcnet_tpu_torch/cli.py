@@ -3,16 +3,18 @@
     python -m pwcnet_tpu_torch.cli train   --preset chairs-1chip [--max-steps N] data.root=DIR [section.field=value ...]
     python -m pwcnet_tpu_torch.cli eval    --preset sintel-eval [--ckpt DIR] [--split val] data.root=DIR [...]
     python -m pwcnet_tpu_torch.cli predict --im1 a.png --im2 b.png [--ckpt DIR] [--out flow.flo] [--vis flow.png]
+    python -m pwcnet_tpu_torch.cli match   --im1 a.png --im2 b.png [--ckpt DIR] [--out matches.txt] [--grid-step 8] [--fb-threshold 1.5]
     python -m pwcnet_tpu_torch.cli config  --preset synthetic-proof [...]
 
-The presets are the JAX package's PWC-Net presets (``config.PRESETS``):
-the file datasets read the tree under ``data.root``; ``synthetic-proof``
-and ``synthetic-hard`` need none. It runs on the GPU;
+The presets are the JAX package's (``config.PRESETS``): the file datasets
+read the tree under ``data.root``; ``synthetic-proof`` and
+``synthetic-hard`` need none; ``raft-chairs`` (or ``model.family=raft``)
+selects RAFT. It runs on the GPU;
 ``PWCNET_PLATFORM=cpu`` selects the CPU (the plain
 versions of the kernels). With no GPU and no such setting it raises.
 ``--ckpt`` is a directory of the port's ``CheckpointManager``
 (``step_<n>.pt``); an Orbax directory of the JAX package is refused.
-``match`` and ``parity`` are not ported yet (ROADMAP A9).
+``parity`` is not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -107,10 +109,31 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def cmd_match(args) -> int:
+    from pwcnet_tpu_torch.data.base import read_image
+    from pwcnet_tpu_torch.frontend import match_two_view
+    cfg = _load_cfg(args)
+    model = _model(cfg, args.ckpt)
+    out = match_two_view(model, read_image(args.im1), read_image(args.im2),
+                         grid_step=args.grid_step,
+                         fb_threshold=args.fb_threshold)
+    matches = np.concatenate(
+        [out["pts1"], out["pts2"], out["confidence"][:, None]], axis=1)
+    if args.out:
+        np.savetxt(args.out, matches, fmt="%.3f",
+                   header="x1 y1 x2 y2 confidence")
+    print(json.dumps({
+        "num_matches": int(len(matches)),
+        "mean_confidence": float(out["confidence"].mean())
+        if len(matches) else None,
+        "median_fb_error_px": float(np.median(out["fb_error"])),
+    }))
+    return 0
+
+
 def cmd_not_ported(args) -> int:
-    raise NotImplementedError(f"the {args.cmd!r} command (the front-end and "
-                              "the parity harness) is not ported yet "
-                              "(ROADMAP A9)")
+    raise NotImplementedError(f"the {args.cmd!r} command (the parity "
+                              "harness) is not ported yet (ROADMAP A9)")
 
 
 def cmd_config(args) -> int:
@@ -121,8 +144,8 @@ def cmd_config(args) -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="pwcnet_tpu_torch", description="PWC-Net optical flow on the "
-        "GPU (the PyTorch/CUDA port of pwcnet_tpu)")
+        prog="pwcnet_tpu_torch", description="PWC-Net and RAFT optical flow "
+        "on the GPU (the PyTorch/CUDA port of pwcnet_tpu)")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     def common(p):
@@ -153,14 +176,25 @@ def main(argv=None) -> int:
     p.add_argument("--vis", default=None, help="color visualization (.png)")
     p.set_defaults(fn=cmd_predict)
 
-    for name, text in (("match", "sparse two-view matches (not ported)"),
-                       ("parity", "reference-parity harness (not ported)")):
-        p = sub.add_parser(name, help=text)
-        common(p)
-        p.add_argument("--ckpt", default=None)
-        p.add_argument("--im1", default=None)
-        p.add_argument("--im2", default=None)
-        p.set_defaults(fn=cmd_not_ported)
+    p = sub.add_parser("match", help="sparse two-view matches (forward-"
+                       "backward-checked flow correspondences)")
+    common(p)
+    p.add_argument("--ckpt", default=None)
+    p.add_argument("--im1", required=True)
+    p.add_argument("--im2", required=True)
+    p.add_argument("--out", default=None,
+                   help="matches text file: x1 y1 x2 y2 confidence")
+    p.add_argument("--grid-step", type=int, default=8)
+    p.add_argument("--fb-threshold", type=float, default=1.5)
+    p.set_defaults(fn=cmd_match)
+
+    p = sub.add_parser("parity", help="reference-parity harness (not "
+                       "ported)")
+    common(p)
+    p.add_argument("--ckpt", default=None)
+    p.add_argument("--im1", default=None)
+    p.add_argument("--im2", default=None)
+    p.set_defaults(fn=cmd_not_ported)
 
     p = sub.add_parser("config", help="print the resolved config")
     common(p)

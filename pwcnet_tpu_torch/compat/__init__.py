@@ -1,3 +1,4 @@
 """Bridges from other frameworks' checkpoints into the port."""
 
-from pwcnet_tpu_torch.compat.flax_weights import load_flax_params  # noqa: F401
+from pwcnet_tpu_torch.compat.flax_weights import (  # noqa: F401
+    load_flax_params, read_flax_npz)

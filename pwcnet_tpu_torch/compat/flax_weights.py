@@ -1,12 +1,19 @@
-"""Load the JAX model's flax parameters into the port.
+"""Load the JAX models' flax parameters into the port.
 
-``params`` is the nested dict of numpy arrays that
+``params`` is the nested dict of arrays that
 ``jax.device_get(variables)["params"]`` gives for ``pwcnet_tpu``'s
-``PWCNet``. Kernels are HWIO there and OIHW here. A tree in either layout of
-the pyramid's first two levels loads: the fused one (``StemConvs_0``, the
-default) and the plain one (``ConvBlock_0..3``, e.g. from a model with
-``min_level=1``); ``remap_stem_params`` converts between them. A missing
-key, an unused key or a wrong shape raises.
+``PWCNet`` or ``RAFT`` (numpy arrays, or torch tensors as
+``read_flax_npz`` gives them). Kernels are HWIO there and OIHW here, square
+or not. A PWC-Net tree in either layout of the pyramid's first two levels
+loads: the fused one (``StemConvs_0``, the default) and the plain one
+(``ConvBlock_0..3``, e.g. from a model with ``min_level=1``);
+``remap_stem_params`` converts between them. A missing key, an unused key
+or a wrong shape raises.
+
+``read_flax_npz`` reads a checkpoint flattened to an ``.npz`` of
+``params/<flax path>`` keys, such as ``runs/raft-synthetic/
+params_step20000_bf16.npz``, whose bf16 arrays numpy stores as raw 2-byte
+records (``|V2``).
 """
 
 from __future__ import annotations
@@ -30,6 +37,13 @@ _RULES: Tuple[Tuple[str, str], ...] = (
     (r"^context/ConvBlock_(\d+)/Conv_0/(kernel|bias)$",
      r"context.blocks.\1.conv/\2"),
     (r"^context/Conv_0/(kernel|bias)$", r"context.flow/\1"),
+    # RAFT.
+    (r"^(fnet|cnet)/Conv_(\d)/(kernel|bias)$", r"\1.conv\2/\3"),
+    (r"^(fnet|cnet)/ResBlock_(\d)/Conv_(\d)/(kernel|bias)$",
+     r"\1.blocks.\2.conv\3/\4"),
+    (r"^SepConvGRU_0/Conv_(\d)/(kernel|bias)$", r"gru.convs.\1/\2"),
+    (r"^MotionEncoder_0/Conv_(\d)/(kernel|bias)$", r"menc.convs.\1/\2"),
+    (r"^((?:flow|mask)_head_\d)/(kernel|bias)$", r"\1/\2"),
 )
 
 
@@ -84,8 +98,32 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         if isinstance(v, Mapping):
             out.update(_flatten(v, path + "/"))
         else:
-            out[path] = np.asarray(v)
+            out[path] = v if torch.is_tensor(v) else np.asarray(v)
     return out
+
+
+def read_flax_npz(path: str) -> dict:
+    """The nested ``params`` tree of an ``.npz`` whose keys are
+    ``params/<flax path>``, as torch tensors. A 2-byte raw array (``|V2``,
+    how numpy stores bf16 without a bf16 type) is read as bf16: its bits
+    viewed as a 16-bit integer, then as ``torch.bfloat16``."""
+    tree: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            parts = key.split("/")
+            if parts[0] != "params":
+                raise KeyError(f"{path}: key {key!r} is not under params/")
+            a = z[key]
+            if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+                t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
+                                     ).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(a)
+            node = tree
+            for p in parts[1:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = t
+    return tree
 
 
 def torch_key(flax_path: str) -> str:
@@ -99,7 +137,8 @@ def torch_key(flax_path: str) -> str:
 
 @torch.no_grad()
 def load_flax_params(model: nn.Module, params: Mapping) -> None:
-    """Fill ``model`` (a port ``PWCNet``) from flax ``params`` in place."""
+    """Fill ``model`` (a port ``PWCNet`` or ``RAFT``) from flax ``params``
+    in place."""
     state = model.state_dict()
     filled = set()
     for path, value in _flatten(_to_model_layout(model, params)).items():
@@ -107,12 +146,14 @@ def load_flax_params(model: nn.Module, params: Mapping) -> None:
         if key not in state:
             raise KeyError(f"flax parameter {path!r} maps to {key!r}, which "
                            "the port's model does not have")
+        value = value if torch.is_tensor(value) else torch.tensor(value)
         if value.ndim == 4:
-            value = value.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            value = value.permute(3, 2, 0, 1)  # HWIO -> OIHW
         if tuple(value.shape) != tuple(state[key].shape):
-            raise ValueError(f"{path!r}: shape {value.shape} (as OIHW) does "
-                             f"not match {key!r} {tuple(state[key].shape)}")
-        state[key].copy_(torch.tensor(value))
+            raise ValueError(f"{path!r}: shape {tuple(value.shape)} (as "
+                             f"OIHW) does not match {key!r} "
+                             f"{tuple(state[key].shape)}")
+        state[key].copy_(value)
         filled.add(key)
     missing = sorted(set(state) - filled)
     if missing:

@@ -1,6 +1,6 @@
 """Config tree of the port: the JAX package's dataclasses (counterpart of
 ``pwcnet_tpu/config.py``, which imports JAX through ``data.augment`` and so
-cannot be imported here) and its PWC-Net presets.
+cannot be imported here) and its presets.
 
 Field names and defaults are the JAX package's, so a config reads the same
 in both. ``apply_overrides`` applies the CLI's ``section.field=value``
@@ -90,7 +90,7 @@ class TrainConfig:
     weight_decay: float = 4e-4
     coupled_l2: bool = False          # torch Adam's coupled L2 vs AdamW
     grad_clip: float = 0.0
-    loss: str = "multiscale"          # multiscale | robust
+    loss: str = "multiscale"          # multiscale | robust | sequence[_inscan]
     level_weights: Optional[Tuple[float, ...]] = None
     seed: int = 0
     log_dir: str = "runs/default"
@@ -113,10 +113,9 @@ class Config:
     parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
 
-# The JAX package's PWC-Net presets, field for field (``raft-chairs`` comes
-# with RAFT, ROADMAP A5). The file presets read the datasets under their
-# ``data.root``; the synthetic ones render procedural pairs with exact
-# ground truth on the device.
+# The JAX package's presets, field for field. The file presets read the
+# datasets under their ``data.root``; the synthetic ones render procedural
+# pairs with exact ground truth on the device.
 PRESETS = {
     "chairs-1chip": Config(
         train=TrainConfig(global_batch=8, log_dir="runs/chairs"),
@@ -164,6 +163,11 @@ PRESETS = {
             summary_interval=200, eval_interval=2500,
             checkpoint_interval=5000, eval_limit=512,
             log_dir="runs/synthetic-hard"),
+    ),
+    "raft-chairs": Config(
+        model=ModelConfig(family="raft"),
+        train=TrainConfig(global_batch=8, loss="sequence",
+                          log_dir="runs/raft-chairs"),
     ),
     "kitti-multihost": Config(
         data=DataConfig(name="kitti", root="/data/KITTI2015",

@@ -6,6 +6,8 @@
   the L2 norm per pixel, summed over pixels, averaged over the batch.
 - ``robust_loss``: the fine-tuning loss (|Delta|_1 + eps)^q, q = 0.4,
   eps = 0.01.
+- ``sequence_loss``: RAFT's gamma-weighted L1 over its per-iteration
+  flows.
 - ``epe``: mean end-point error with an optional validity mask;
   ``fl_outliers``: the KITTI Fl outlier indicator.
 
@@ -117,3 +119,27 @@ def fl_outliers(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     dist = torch.sqrt((diff * diff).sum(-1) + 1e-16)
     gt_mag = torch.sqrt((gt.float() ** 2).sum(-1) + 1e-16)
     return ((dist > 3.0) & (dist > 0.05 * gt_mag)).float()
+
+
+def sequence_loss(flows: List[torch.Tensor], gt: torch.Tensor,
+                  valid: Optional[torch.Tensor] = None, gamma: float = 0.8,
+                  max_flow: float = 400.0) -> torch.Tensor:
+    """RAFT's sequence loss: each iteration's pixel flow, resized to the GT's
+    size as ``jax.image.resize(..., "bilinear")`` does and scaled by the H
+    ratio, against the GT in L1, averaged over the pixels with |gt| <
+    ``max_flow`` (and ``valid``), weighted ``gamma ** (n - 1 - i)``."""
+    n_iters = len(flows)
+    hw = tuple(gt.shape[1:3])
+    gt32 = gt.float()
+    v = (torch.sqrt((gt32 ** 2).sum(-1)) < max_flow).float()
+    if valid is not None:
+        v = v * valid.float()
+    den = torch.clamp(v.sum(), min=1.0)
+    total = gt.new_zeros((), dtype=torch.float32)
+    for i, flow in enumerate(flows):
+        # downsample_bilinear is jax.image.resize either way: its kernel
+        # widens only along an axis that shrinks.
+        up = downsample_bilinear(flow.float(), hw) * (hw[0] / flow.shape[1])
+        l1 = torch.abs(up - gt32).sum(-1)
+        total = total + gamma ** (n_iters - 1 - i) * (l1 * v).sum() / den
+    return total

@@ -1,4 +1,4 @@
-"""PWC-Net modules of the port."""
+"""The port's models: PWC-Net and RAFT."""
 
 from pwcnet_tpu_torch.models.pwcnet import (  # noqa: F401
     ContextNetwork,
@@ -6,3 +6,4 @@ from pwcnet_tpu_torch.models.pwcnet import (  # noqa: F401
     OpticalFlowEstimator,
     PWCNet,
 )
+from pwcnet_tpu_torch.models.raft import RAFT  # noqa: F401

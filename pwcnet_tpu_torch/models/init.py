@@ -12,7 +12,7 @@ import math
 import torch
 from torch import nn
 
-from pwcnet_tpu_torch.models.layers import Conv3x3
+from pwcnet_tpu_torch.models.layers import Conv
 
 # Std of a standard normal truncated to [-2, 2] (flax variance_scaling).
 _TRUNC_STD = 0.87962566103423978
@@ -30,6 +30,6 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every conv of ``model`` in module order."""
     for m in model.modules():
-        if isinstance(m, Conv3x3):
+        if isinstance(m, Conv):
             lecun_normal_(m.weight, generator)
             m.bias.zero_()

@@ -14,7 +14,7 @@ rows it reads across shard edges (``parallel/spatial_ops.py``).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import torch
 from torch import nn
@@ -24,14 +24,14 @@ from pwcnet_tpu_torch.ops.kernels.stem_kernel import stem, stem_ref
 from pwcnet_tpu_torch.parallel.spatial_ops import conv_rows, stem_rows
 
 
-class Conv3x3(nn.Module):
-    """3x3 conv with bias, XLA SAME padding; OIHW f32 weight."""
+class Conv(nn.Module):
+    """(kh, kw) conv with bias, XLA SAME padding; OIHW f32 weight."""
 
-    def __init__(self, cin: int, cout: int, stride: int = 1,
-                 dilation: int = 1):
+    def __init__(self, cin: int, cout: int, kernel: Tuple[int, int] = (3, 3),
+                 stride: int = 1, dilation: int = 1):
         super().__init__()
         self.stride, self.dilation = stride, dilation
-        self.weight = nn.Parameter(torch.zeros(cout, cin, 3, 3))
+        self.weight = nn.Parameter(torch.zeros(cout, cin, *kernel))
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -40,6 +40,14 @@ class Conv3x3(nn.Module):
                              self.dilation, mesh)
         return conv_same(x, self.weight, self.bias, self.stride,
                          self.dilation)
+
+
+class Conv3x3(Conv):
+    """3x3 conv with bias, XLA SAME padding; OIHW f32 weight."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1,
+                 dilation: int = 1):
+        super().__init__(cin, cout, (3, 3), stride, dilation)
 
 
 class ConvBlock(nn.Module):
@@ -56,7 +64,7 @@ class ConvBlock(nn.Module):
         super().__init__()
         if use_norm:
             raise NotImplementedError("ConvBlock(use_norm=True) is not "
-                                      "ported yet")
+                                      "ported yet (GroupNorm: ROADMAP A9)")
         self.conv = Conv3x3(cin, features, stride, dilation)
 
     def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:

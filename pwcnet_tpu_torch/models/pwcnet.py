@@ -233,9 +233,13 @@ class PWCNet(nn.Module):
 
     def forward(self, im1: torch.Tensor, im2: torch.Tensor,
                 intermediates: Optional[Dict[str, list]] = None,
-                mesh=None) -> List[torch.Tensor]:
+                mesh=None, train: bool = True) -> List[torch.Tensor]:
         """(N, H, W, 3) images in [0, 1], H and W divisible by
         ``pad_divisor`` -> per-level f32 flows, coarsest first.
+
+        ``train`` is accepted for callers that drive PWC-Net and RAFT alike
+        and changes nothing: the JAX model reads it only for GroupNorm,
+        which is not ported.
 
         When ``intermediates`` is a dict, it receives the pyramid of both
         frames (``"pyramid"``, NHWC, coarsest first) and each level's

@@ -1,10 +1,11 @@
-"""3x3 convolution with XLA ``"SAME"`` padding, and the model's LeakyReLU.
+"""Convolution with XLA ``"SAME"`` padding, and the models' LeakyReLU.
 
 XLA's SAME pads ``total = max((ceil(in/s) - 1) * s + (k - 1) * dil + 1 - in,
 0)`` with ``total // 2`` before and the rest after. For a 3x3 stride-2 conv
 on an even size that is 0 before and 1 after, where
 ``nn.Conv2d(padding=1)`` would pad 1 on each side and shift every output by
-half a pixel.
+half a pixel. A 7x7 stride-2 conv on an even size pads (2, 3), a 1x1
+stride-2 conv pads nothing.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Evaluation (counterpart of ``pwcnet_tpu/train/evaluate.py``): dataset
 EPE, Fl-all and their breakdowns (``evaluate_dataset``), and single-pair
-inference (``predict_flow``: pad to the model's divisor, forward, upsample
-the finest flow to full resolution, undo the supervision scale, crop)."""
+inference (``predict_flow``: pad to the model's divisor, forward with
+``train=False``, upsample the finest flow to full resolution, undo the
+supervision scale, crop), for PWC-Net and RAFT."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -13,6 +14,7 @@ import torch
 from pwcnet_tpu_torch.data.base import FlowDataset
 from pwcnet_tpu_torch.data.pipeline import eval_batches
 from pwcnet_tpu_torch.models.pwcnet import PWCNet
+from pwcnet_tpu_torch.models.raft import RAFT
 from pwcnet_tpu_torch.train.step import make_eval_step
 
 
@@ -29,8 +31,8 @@ def pad_to_divisible(img: np.ndarray, div: int = 64
 
 
 @torch.inference_mode()
-def predict_flow(model: PWCNet, im1: np.ndarray, im2: np.ndarray
-                 ) -> np.ndarray:
+def predict_flow(model: Union[PWCNet, RAFT], im1: np.ndarray,
+                 im2: np.ndarray) -> np.ndarray:
     """(H, W, 3) images in [0, 1] -> (H, W, 2) f32 pixel flow at input
     resolution, on the model's device."""
     div = model.pad_divisor
@@ -38,11 +40,12 @@ def predict_flow(model: PWCNet, im1: np.ndarray, im2: np.ndarray
     p2, _ = pad_to_divisible(np.asarray(im2, np.float32)[None], div)
     a = torch.tensor(p1, device=model.device)  # a copy: p1 may be read-only
     b = torch.tensor(p2, device=model.device)
-    full = model.full_res_flow(model(a, b), tuple(a.shape[1:3]))
+    full = model.full_res_flow(model(a, b, train=False), tuple(a.shape[1:3]))
     return full[0, :h, :w].float().cpu().numpy()
 
 
-def evaluate_dataset(model: PWCNet, dataset: FlowDataset, batch: int = 4,
+def evaluate_dataset(model: Union[PWCNet, RAFT], dataset: FlowDataset,
+                     batch: int = 4,
                      limit: Optional[int] = None) -> Dict[str, float]:
     """Mean EPE and Fl-all (%) over the first ``limit`` samples, masked by
     validity (padding is invalid), with the EPE by GT magnitude and the

@@ -1,5 +1,5 @@
 """The trainer (counterpart of ``pwcnet_tpu/train/loop.py``) for PWC-Net
-on one device.
+and RAFT on one device.
 
 ``train(cfg, max_steps, device=None)`` builds the model and optimizer,
 resumes from the latest checkpoint under ``<log_dir>/ckpt``, and runs the
@@ -23,7 +23,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -33,6 +33,7 @@ from pwcnet_tpu_torch.data.base import get_dataset
 from pwcnet_tpu_torch.data.pipeline import Loader
 from pwcnet_tpu_torch.data.synthetic import make_device_batcher
 from pwcnet_tpu_torch.models.pwcnet import PWCNet, _resolve_device
+from pwcnet_tpu_torch.models.raft import RAFT
 from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
 from pwcnet_tpu_torch.train.evaluate import evaluate_dataset, predict_flow
 from pwcnet_tpu_torch.train.metrics import MetricsWriter
@@ -43,22 +44,36 @@ from pwcnet_tpu_torch.train.step import make_train_step
 _log = logging.getLogger(__name__)
 
 
-def build_model(cfg: Config, device=None) -> PWCNet:
-    """The config's PWC-Net, with weights drawn from ``cfg.train.seed``."""
+def _flag(v) -> bool:
+    """A config flag that may arrive as the CLI's string ("false" is
+    truthy under bool())."""
+    if isinstance(v, str):
+        return v.lower() in ("1", "true", "yes")
+    return bool(v)
+
+
+def build_model(cfg: Config, device=None) -> Union[PWCNet, RAFT]:
+    """The config's PWC-Net or RAFT, with weights drawn from
+    ``cfg.train.seed``."""
     m = cfg.model
+    dtype = torch.bfloat16 if m.dtype == "bfloat16" else torch.float32
+    generator = torch.Generator().manual_seed(cfg.train.seed)
+    if m.family == "raft":
+        kw = {} if m.raft_gru_fuse is None else {
+            "gru_fuse_zr": _flag(m.raft_gru_fuse)}
+        return RAFT(num_iters=m.raft_iters, corr_radius=m.raft_radius,
+                    corr_backend=m.corr_backend, dtype=dtype, device=device,
+                    generator=generator, **kw)
     if m.family != "pwcnet":
-        raise NotImplementedError(f"model family {m.family!r} is not ported "
-                                  "yet (RAFT: ROADMAP A5)")
+        raise ValueError(f"unknown model family {m.family!r}")
     return PWCNet(
         num_levels=m.num_levels, output_level=m.output_level,
         search_range=m.search_range, residual=m.residual,
         use_norm=m.use_norm, input_norm=m.input_norm,
         input_center=m.input_center, corr_backend=m.corr_backend,
         stem_backend=m.stem_backend, flow_scale=m.flow_scale,
-        resize_mode=m.resize_mode,
-        dtype=torch.bfloat16 if m.dtype == "bfloat16" else torch.float32,
-        device=device,
-        generator=torch.Generator().manual_seed(cfg.train.seed))
+        resize_mode=m.resize_mode, dtype=dtype, device=device,
+        generator=generator)
 
 
 def _check_ported(cfg: Config, dev: torch.device) -> None:
@@ -71,9 +86,6 @@ def _check_ported(cfg: Config, dev: torch.device) -> None:
                                   "(ROADMAP A6); the spatial path runs "
                                   "inference only (training across shards: "
                                   "ROADMAP A7)")
-    if cfg.train.loss in ("sequence", "sequence_inscan"):
-        raise NotImplementedError(f"loss {cfg.train.loss!r} comes with RAFT "
-                                  "(ROADMAP A5)")
 
 
 @contextlib.contextmanager
@@ -123,7 +135,7 @@ def to_device(batch: Dict[str, np.ndarray], dev: torch.device
             for k, v in batch.items()}
 
 
-def _evaluate(cfg: Config, model: PWCNet, val_ds, writer: MetricsWriter,
+def _evaluate(cfg: Config, model, val_ds, writer: MetricsWriter,
               step: int, final: dict, failures: list) -> None:
     """The periodic eval: val metrics into the log and ``final``, then flow
     images of val sample 0 (a failure there is logged once per run, counted

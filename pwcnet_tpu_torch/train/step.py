@@ -1,5 +1,5 @@
 """The train and eval steps (counterpart of ``pwcnet_tpu/train/step.py``,
-single device).
+single device), for PWC-Net and RAFT.
 
 A train step is forward, loss, ``backward()`` (through the kernels' autograd
 Functions on the GPU), optional clipping, the optimizer update and one
@@ -7,9 +7,11 @@ scheduler step, after the augmentation of the batch when the step has one
 (``data/augment.py``, drawn on the ``TrainState``'s generator). Its
 metrics are the JAX step's: ``loss``, ``train_epe``
 (the finest flow, in full-resolution pixels, against the mask-weighted
-downsampled ground truth) and ``grad_norm`` (the global norm of the raw
-gradients, before clipping). They stay on the device as 0-d tensors; the
-caller reads them when it needs them.
+downsampled ground truth: PWC-Net's scaled units times ``flow_scale``,
+RAFT's pixels at their resolution times the image's H over theirs) and
+``grad_norm`` (the global norm of the raw gradients, before clipping).
+They stay on the device as 0-d tensors; the caller reads them when it
+needs them.
 """
 
 from __future__ import annotations
@@ -22,24 +24,27 @@ from pwcnet_tpu_torch.config import AugmentConfig
 from pwcnet_tpu_torch.data.augment import augment_batch
 from pwcnet_tpu_torch.losses import (LEVEL_WEIGHTS, downsample_gt, epe,
                                      fl_outliers, multiscale_loss,
-                                     robust_loss)
+                                     robust_loss, sequence_loss)
 from pwcnet_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 
 
-def _make_loss(loss_kind: str, flow_scale: float,
-               level_weights: Optional[Sequence[float]]) -> Callable:
+def _make_loss(loss_kind: str, model,
+               level_weights: Optional[Sequence[float]]) -> Optional[Callable]:
+    """``loss(flows, gt, valid)`` of a loss kind; None for
+    ``"sequence_inscan"``, which the model computes itself (``gt=``)."""
     weights = tuple(level_weights) if level_weights else LEVEL_WEIGHTS
     if loss_kind == "multiscale":
         return lambda flows, gt, v: multiscale_loss(
-            flows, gt, v, weights=weights, flow_scale=flow_scale)
+            flows, gt, v, weights=weights, flow_scale=model.flow_scale)
     if loss_kind == "robust":
         return lambda flows, gt, v: robust_loss(
-            flows, gt, v, weights=weights, flow_scale=flow_scale)
-    if loss_kind in ("sequence", "sequence_inscan"):
-        raise NotImplementedError(f"loss {loss_kind!r} is RAFT's and comes "
-                                  "with RAFT (ROADMAP A5)")
+            flows, gt, v, weights=weights, flow_scale=model.flow_scale)
+    if loss_kind == "sequence":
+        return sequence_loss
+    if loss_kind == "sequence_inscan":
+        return None
     raise ValueError(f"unknown loss kind {loss_kind!r}")
 
 
@@ -56,7 +61,7 @@ def make_train_step(model, optimizer, scheduler,
     drawn on ``state.generator`` (CPU), the noise on the model's device from
     a generator seeded by a draw of the same, so a restored state replays
     the augmentation. ``state`` is advanced in place and returned."""
-    loss_fn = _make_loss(loss_kind, model.flow_scale, level_weights)
+    loss_fn = _make_loss(loss_kind, model, level_weights)
     params = [p for p in model.parameters() if p.requires_grad]
     noise_gen = torch.Generator(device=model.device) if aug else None
 
@@ -64,8 +69,12 @@ def make_train_step(model, optimizer, scheduler,
         if aug is not None:
             batch = augment_batch(batch, state.generator, aug, noise_gen)
         optimizer.zero_grad(set_to_none=True)
-        flows = model(batch["im1"], batch["im2"])
-        loss = loss_fn(flows, batch["flow"], batch["valid"])
+        if loss_fn is None:  # the sequence loss inside RAFT's loop
+            flows, loss = model(batch["im1"], batch["im2"], gt=batch["flow"],
+                                valid=batch["valid"])
+        else:
+            flows = model(batch["im1"], batch["im2"])
+            loss = loss_fn(flows, batch["flow"], batch["valid"])
         loss.backward()
         grads = [p.grad for p in params if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(
@@ -79,10 +88,12 @@ def make_train_step(model, optimizer, scheduler,
         state.step += 1
         with torch.no_grad():
             finest = flows[-1].detach()
+            to_px = getattr(model, "flow_scale",
+                            batch["im1"].shape[1] / finest.shape[1])
             gt_small, v_small = downsample_gt(
                 batch["flow"], tuple(finest.shape[1:3]), flow_scale=1.0,
                 valid=batch["valid"])
-            train_epe = epe(finest * model.flow_scale, gt_small, v_small)
+            train_epe = epe(finest * to_px, gt_small, v_small)
         return state, {"loss": loss.detach(), "train_epe": train_epe,
                        "grad_norm": grad_norm.detach()}
 
@@ -103,7 +114,7 @@ def make_eval_step(model) -> Callable[[Batch], Tuple[torch.Tensor, ...]]:
 
     @torch.no_grad()
     def step(batch: Batch):
-        flows = model(batch["im1"], batch["im2"])
+        flows = model(batch["im1"], batch["im2"], train=False)
         full = model.full_res_flow(flows, tuple(batch["im1"].shape[1:3]))
         gt, v = batch["flow"].float(), batch["valid"].float()
         diff = full - gt

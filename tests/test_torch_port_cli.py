@@ -77,13 +77,23 @@ def _run_cli(capsys, monkeypatch, *argv):
      "train.eval_limit=16", "train.profile_dir=prof"],
 ])
 def test_apply_overrides_matches_jax(overrides):
-    for preset in (None, "synthetic-proof"):
+    for preset in (None, "synthetic-proof", "raft-chairs"):
         t = tconfig.PRESETS[preset] if preset else tconfig.Config()
         j = jconfig.PRESETS[preset] if preset else jconfig.Config()
         got = dataclasses.asdict(tconfig.apply_overrides(t, overrides))
         want = dataclasses.asdict(jconfig.apply_overrides(j, overrides))
         got, want = _shared(got, want)
         assert got == want
+
+
+@pytest.mark.parametrize("preset", sorted(jconfig.PRESETS))
+def test_presets_match_jax(preset):
+    """Every JAX preset is the port's, field for field (the fields both
+    configs have)."""
+    got = dataclasses.asdict(tconfig.PRESETS[preset])
+    want = dataclasses.asdict(jconfig.PRESETS[preset])
+    got, want = _shared(got, want)
+    assert got == want
 
 
 @pytest.mark.parametrize("override,error", [("model.nope=1", AttributeError),
@@ -406,9 +416,13 @@ def test_cli_without_gpu_or_platform_raises(monkeypatch):
 
 @pytest.mark.parametrize("cmd", ["match", "parity"])
 def test_match_and_parity_are_not_ported(monkeypatch, cmd):
+    """parity is not ported; match is (tests/test_torch_port_frontend.py),
+    but not with a model that needs GroupNorm, which is not either."""
     monkeypatch.setenv("PWCNET_PLATFORM", "cpu")
+    extra = ["model.use_norm=true"] if cmd == "match" else []
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        cli.main([cmd, "--im1", "a.png", "--im2", "b.png"])
+        cli.main([cmd, "--im1", f"{FIXTURES}/im1.png", "--im2",
+                  f"{FIXTURES}/im2.png", *extra])
 
 
 def test_eval_refuses_a_directory_without_port_checkpoints(tmp_path,

@@ -1,5 +1,7 @@
-"""The port stands alone: it imports nothing of JAX, flax or ``pwcnet_tpu``,
-and its entry points refuse to fall back to the CPU silently.
+"""The port stands alone: it imports nothing of JAX, flax or ``pwcnet_tpu``
+(nor ``ml_dtypes``, which the GPU machine lacks: the bf16 checkpoint reader
+views raw bits), and its entry points refuse to fall back to the CPU
+silently.
 
 The import check runs in a subprocess, because this test process already
 imports JAX (``tests/conftest.py``).
@@ -15,7 +17,7 @@ import pytest
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pwcnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pwcnet_tpu", "ml_dtypes")
 
 _CHECK = """
 import importlib, pkgutil, sys

@@ -240,6 +240,34 @@ def test_warp_ext_matches_jax_shard(row0, scale):
         assert np.abs(own - full).max() > 1e-2
 
 
+@pytest.mark.parametrize("row0", [0, 8])
+def test_warp_ext_nan_flow_matches_jax_shard(row0):
+    """A NaN flow gathers at index 0 and keeps NaN weights (it used to turn
+    into index -2**63 and raise): the corners, the weights and the warp are
+    NaN where JAX's are, and equal elsewhere."""
+    rng = np.random.default_rng(7 + row0)
+    n, t, w, c, halo, d, h = 2, 8, 12, 6, 3, 2, 32
+    f2 = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    flow_g = (2 * rng.standard_normal((n, h, w, 2))).astype(np.float32)
+    f2e = _ext_rows(f2, row0, t, halo, halo)
+    flow_e = _ext_rows(flow_g, row0, t, d, d)
+    flow_e[0, 3, 4, 0] = flow_e[1, 6, 2, 1] = flow_e[1, 0, 0] = np.nan
+    args = (row0, h, halo, d)
+    g_j, wm_j = _warp_ext_corners(jnp.asarray(f2e), jnp.asarray(flow_e),
+                                  jnp.int32(row0), h, halo, d)
+    g_p, wm_p = warp_ext_corners_ref(_t(f2e), _t(flow_e), *args)
+    want = np.asarray(_warp_ext(jnp.asarray(f2e), jnp.asarray(flow_e),
+                                jnp.int32(row0), h, halo, d))
+    got = warp_ext_ref(_t(f2e), _t(flow_e), *args).numpy()
+    for a, b in ((g_p.numpy(), np.asarray(g_j)), (wm_p.numpy(),
+                                                   np.asarray(wm_j)),
+                 (got, want)):
+        np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+        np.testing.assert_allclose(np.nan_to_num(a), np.nan_to_num(b),
+                                   rtol=0, atol=1e-6)
+    assert np.isnan(want).sum() == 3 * c  # the three NaN pixels, no more
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cost_volume_prepadded_matches_jax(dtype):
     rng = np.random.default_rng(3)

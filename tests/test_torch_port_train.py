@@ -419,8 +419,9 @@ def _changed(cfg, change):
 @pytest.mark.parametrize("change", [
     dict(parallel=dict(data=2)),
     dict(parallel=dict(spatial=2)),
-    dict(train=dict(loss="sequence")),
-    dict(model=dict(family="raft")),
+    # RAFT and its sequence losses are ported (train runs them below).
+    dict(parallel=dict(num_processes=2)),
+    dict(model=dict(use_norm=True)),
 ])
 def test_train_raises_for_what_is_not_ported(tmp_path, change):
     cfg = _changed(_tiny_cfg(tmp_path), change)
@@ -429,14 +430,19 @@ def test_train_raises_for_what_is_not_ported(tmp_path, change):
 
 
 @pytest.mark.parametrize("case", ["device_gen_false", "flyingchairs",
-                                  "debug_nans", "profile_dir"])
+                                  "debug_nans", "profile_dir", "raft",
+                                  "raft_inscan"])
 def test_train_runs_what_was_not_ported(tmp_path, chairs_dir, case):
-    """What raised before the file datasets and the trainer's debug
-    switches were ported now trains: synthetic pairs through the Loader and
+    """What raised before the file datasets, the trainer's debug switches
+    and RAFT were ported now trains: synthetic pairs through the Loader and
     the augmentation, a FlyingChairs tree (native decoder), the NaN checks
-    (silent on finite data, and off again afterwards) and the profiler
-    (a trace in profile_dir)."""
+    (silent on finite data, and off again afterwards), the profiler (a
+    trace in profile_dir) and RAFT under both sequence losses."""
     change = {
+        "raft": dict(model=dict(family="raft", raft_iters=2),
+                     train=dict(loss="sequence")),
+        "raft_inscan": dict(model=dict(family="raft", raft_iters=2),
+                            train=dict(loss="sequence_inscan")),
         "device_gen_false": dict(data=dict(device_gen=False,
                                            sample_hw=(64, 64))),
         "flyingchairs": dict(data=dict(name="flyingchairs", root=chairs_dir,

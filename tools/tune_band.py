@@ -8,7 +8,9 @@ warped levels 5..2) and of a 448x1024 pair (``K6_MAIN``, K6 only), for K6
 at the 512x1024 pair's S = 2 shard levels (``K6P[2]``, through the
 unsharded entry at the shard's shape), and for K2 and K3 also at the
 levels of the things-ft (8 x 384x768) and kitti-multihost (16 x 320x896)
-crops (``chip_smoke.level_shapes``), the script runs the kernel under
+crops (``chip_smoke.level_shapes``) and at RAFT's two correlation
+scales of a 448x1024 pair and of 8 x 384x448 (``chip_smoke.RAFT_INFER``,
+``RAFT_TRAIN``; C = 128), the script runs the kernel under
 every plan that its explicit-plan entry takes (K6: tile x dy groups,
 ``pwc_warp_corr_fwd_tiled``; K2 and K3: tile x channel slice,
 ``pwc_cost_volume_bwd_tiled``), holds each result against the plain
@@ -125,7 +127,8 @@ def main() -> int:
     # out); their plain version is autograd: outside inference mode.
     bwd_sets = (("train", cs.CORR_TRAIN),
                 ("things_ft", cs.level_shapes(8, (384, 768))),
-                ("kitti_multihost", cs.level_shapes(16, (320, 896))))
+                ("kitti_multihost", cs.level_shapes(16, (320, 896))),
+                ("raft", cs.RAFT_INFER + cs.RAFT_TRAIN))
     for set_name, shape in ((k, sh) for k, shapes in bwd_sets
                             for sh in shapes):
         n, h, w, c = shape
