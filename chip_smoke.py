@@ -28,7 +28,12 @@ steps with CUDA events. Then RAFT at full width: K1-K3 at its shapes
 repo's trained checkpoint at 448x1024 (24 K1 per forward) with its val EPE
 on synthetic-proof, its f32 forward against the CPU's, the trainer with the
 sequence loss (24 of each of K1-K3 per step), and the command line's RAFT
-``train``, ``predict`` and ``match``. Each phase prints one JSON line;
+``train``, ``predict`` and ``match``. Then the repo's trained PWC-Net
+checkpoint (``pwc_trained``: bf16 launches, val EPE on synthetic-proof's 256
+val pairs beside the TPU run's, f32 card vs CPU per level) and data-parallel
+training on two ``gloo`` ranks sharing the card (``ddp_train``: PWC-Net bf16
+with a checkpoint and a resume, f32 two ranks against one process, RAFT,
+nccl's refusal of two ranks on one card). Each phase prints one JSON line;
 any failure raises and the script exits non-zero. Without a CUDA device it
 exits 1 at once. The last line is ``{"ok": true, "device": {...}}``; every
 phase's result, the predicted flows and the trainer's logs go to ``DIR``
@@ -762,7 +767,9 @@ def grad_rel(a, b) -> dict:
 
 
 def train_phases(out_dir: str, dev, smi: str, timer) -> dict:
-    """train_steps, overfit, train_f32_card_vs_cpu, train_times."""
+    """train_steps, overfit, train_f32_card_vs_cpu, train_times; returns
+    the launches per train step and the f32 step's gradient tolerance (its
+    measured CPU floor rule)."""
     import shutil
     from pwcnet_tpu_torch.data.synthetic import make_device_batcher
     from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
@@ -928,7 +935,7 @@ def train_phases(out_dir: str, dev, smi: str, timer) -> dict:
           "idle_share_of_wall": 1 - busy / step_wall,
           "kernel_launches_per_step": n_launch, "top": top,
           "nvidia_smi": smi})
-    return per_step
+    return per_step, tol
 
 
 def k6_flow(shape, kind, dev, gen):
@@ -2608,6 +2615,274 @@ def raft_cli(out_dir: str, roots: dict) -> None:
                              "match gave a wrong result")
 
 
+TRAINED_NPZ = os.path.join(ROOT, "runs", "synthetic-proof",
+                           "params_step125000_bf16.npz")
+TRAINED_EVAL = os.path.join(ROOT, "runs", "synthetic-proof",
+                            "final_eval.json")  # the TPU run, 256 pairs
+TRAINED_PAIRS = 256
+TRAINED_EPE_MAX = 0.05
+TRAINED_HW = (384, 448)
+PWC_FWD_LAUNCHES = {"corr_fwd": 5, "stem_fwd": 1}
+
+
+def trained_pwcnet(dtype, device):
+    """The port's PWC-Net with the repo's trained weights."""
+    from pwcnet_tpu_torch import PWCNet
+    from pwcnet_tpu_torch.compat import load_flax_params, read_flax_npz
+    model = PWCNet(dtype=dtype, device=device)
+    load_flax_params(model, read_flax_npz(TRAINED_NPZ))
+    return model.eval()
+
+
+def pwc_trained(dev, smi: str) -> None:
+    """pwc_trained: the repo's trained PWC-Net checkpoint (bf16 stored as
+    uint16 views) in bf16 with corr_backend="pallas": K1 5 and K4 1
+    launches per forward with the plain correlation refused, val EPE and
+    Fl-all on synthetic-proof's 256 val pairs at 384x448 beside the TPU
+    run's; the f32 card forward against the CPU's per level."""
+    from pwcnet_tpu_torch.data.synthetic import SyntheticFlow
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
+    from pwcnet_tpu_torch.train.evaluate import evaluate_dataset
+    model = trained_pwcnet(torch.bfloat16, dev)
+    val = SyntheticFlow(split="val", hw=TRAINED_HW, val_length=TRAINED_PAIRS)
+    s = val[0]
+    im1, im2 = (torch.tensor(s[k], device=dev)[None] for k in ("im1", "im2"))
+    with torch.inference_mode():
+        model(im1, im2, train=False)  # warm-up
+        torch.cuda.synchronize()
+        with no_plain_correlation():
+            reset_launches(ck, sk)
+            model(im1, im2, train=False)
+            torch.cuda.synchronize()
+            launches = {k: v for m in (ck, sk) for k, v in m.LAUNCHES.items()
+                        if v}
+    t0 = time.perf_counter()
+    ev = evaluate_dataset(model, val, batch=8, limit=TRAINED_PAIRS)
+    with open(TRAINED_EVAL) as f:
+        tpu = json.load(f)
+    # f32: the card's kernels against the CPU's plain ops, per level.
+    a, b = (torch.tensor(s[k])[None] for k in ("im1", "im2"))
+    with torch.inference_mode():
+        f_cpu = trained_pwcnet(torch.float32, "cpu")(a, b)
+        f_card = trained_pwcnet(torch.float32, dev)(a.to(dev), b.to(dev))
+    per_level = [rel_err(g.cpu(), w)[1] for g, w in zip(f_card, f_cpu)]
+    emit({"phase": "pwc_trained",
+          "checkpoint": os.path.relpath(TRAINED_NPZ, ROOT),
+          "dataset": "synthetic-proof val, 384x448", "dtype": "bfloat16",
+          "launches_per_forward": launches, "epe": ev["epe"],
+          "fl_all": ev["fl_all"], "num_samples": ev["num_samples"],
+          "tpu_epe_same_pairs": tpu["epe"], "tpu_fl_all": tpu["fl_all"],
+          "epe_max": TRAINED_EPE_MAX, "eval_seconds": time.perf_counter() - t0,
+          "f32_rel_err_per_level": per_level, "tol": FWD_TOL,
+          "nvidia_smi": smi})
+    if launches != PWC_FWD_LAUNCHES:
+        raise AssertionError(f"expected {PWC_FWD_LAUNCHES} per forward, got "
+                             f"{launches}")
+    if not (ev["num_samples"] == TRAINED_PAIRS and np.isfinite(ev["epe"])
+            and ev["epe"] < TRAINED_EPE_MAX):
+        raise AssertionError(f"trained PWC-Net val EPE {ev['epe']} on "
+                             f"{ev['num_samples']} pairs")
+    if not max(per_level) <= FWD_TOL:
+        raise AssertionError(f"trained PWC-Net card and CPU forwards "
+                             f"disagree: {per_level}")
+
+
+DDP_WORLD = 2      # gloo ranks sharing the one card
+DDP_STEPS = 4      # (a): a checkpoint at 2, resumed to 4 in a second launch
+DDP_F32_STEPS = 2  # (b): two ranks against one process
+# (b) as the f32 train-step check holds one step (TRAIN_TOL on the metrics,
+# its measured floor rule on the gradients): the first step's metrics and
+# gradients, and the second step's loss. The second step's gradients and the
+# parameters are printed: Adam moves an entry whose gradient is within
+# rounding of 0 by about +-lr either way, and the second step's gradients
+# then jump where a LeakyReLU input crossed 0.
+
+
+def _ranks_equal(results) -> bool:
+    """Whether every rank ended with rank 0's parameters, bit for bit
+    (their SHA-256, or the tensors)."""
+    first = results[0]["params"]
+    if isinstance(first, str):
+        return all(r["params"] == first for r in results)
+    return all(torch.equal(r["params"][k], v) for r in results
+               for k, v in first.items())
+
+
+def _finite(metrics: dict) -> bool:
+    return bool(np.isfinite([v for k, v in metrics.items()
+                             if k != "step"]).all())
+
+
+def ddp_train(out_dir: str, dev, smi: str, grad_tol: float) -> dict:
+    """ddp_train: data-parallel training on DDP_WORLD gloo ranks that share
+    the card (parallel.launch.run_ranks, one process a rank): (a) PWC-Net
+    bf16, synthetic-proof with device_gen, global batch 8 at 384x448, 4
+    rows a rank, DDP_STEPS steps with a checkpoint at 2 and a resume to 4
+    in a second launch: finite metrics, the ranks' parameters equal bit for
+    bit (SHA-256), one record a step in metrics.jsonl and the checkpoints
+    of process 0, K1-K5 5/5/5/1/1 per step on each rank, the wall per step
+    and the collectives' host time (two ranks on one card: no speed is
+    claimed); (b) PWC-Net f32, two ranks against one process on the same
+    global batches; (c) RAFT bf16, one step: 24 of each of K1-K3 per rank;
+    (d) nccl: two ranks on one card are refused before any NCCL
+    communicator exists, and (a) runs under nccl where there are two
+    cards."""
+    import dataclasses
+    import shutil
+    from pwcnet_tpu_torch.data.synthetic import make_device_batcher
+    from pwcnet_tpu_torch.parallel.launch import params_digest, run_ranks
+    from pwcnet_tpu_torch.parallel.launch import run_steps
+    from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
+    from pwcnet_tpu_torch.train.loop import build_model
+    cfg = train_config("ddp", summary_interval=1, checkpoint_interval=2)
+    shutil.rmtree(cfg.train.log_dir, ignore_errors=True)
+    half = DDP_STEPS // 2
+
+    def job(tasks, backend="gloo"):
+        return dict(backend=backend, device=str(dev), allow_tf32=False,
+                    tasks=tasks)
+
+    # (a), first launch: steps 1-2, checkpoint at 2.
+    t0 = time.perf_counter()
+    first = [r[0] for r in run_ranks(DDP_WORLD, job([dict(
+        kind="train", cfg=cfg, max_steps=half, digest=True)]),
+        os.path.join(RUN_DIR, "ddp_job1"), timeout=600)]
+    first_s = time.perf_counter() - t0
+    ckpt = CheckpointManager(os.path.join(cfg.train.log_dir, "ckpt"))
+    saved = build_model(cfg, "cpu")
+    saved.load_state_dict(ckpt.load(half)["model"])
+    ckpt_digest = params_digest(saved)
+
+    # (a) resumed to DDP_STEPS (its collectives profiled on each rank), (b)
+    # and (c) in one second launch.
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32"))
+    sd32 = build_model(cfg32, "cpu").state_dict()
+    batcher = make_device_batcher(cfg.train.global_batch,
+                                  cfg.data.augment.crop_hw, seed=7,
+                                  device="cpu")
+    batches = [batcher(s) for s in range(DDP_F32_STEPS)]
+    rcfg = raft_config("ddp_raft", summary_interval=1)
+    shutil.rmtree(rcfg.train.log_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    second = run_ranks(DDP_WORLD, job([
+        dict(kind="train", cfg=cfg, max_steps=DDP_STEPS - half, digest=True,
+             profile=True),
+        dict(kind="step", cfg=cfg32, state_dict=sd32, batches=batches),
+        dict(kind="train", cfg=rcfg, max_steps=1, digest=True)]),
+        os.path.join(RUN_DIR, "ddp_job2"), timeout=600)
+    second_s = time.perf_counter() - t0
+    resumed, f32, raft = ([r[i] for r in second] for i in range(3))
+
+    # (a): metrics, files, launches, equality.
+    recs = _metrics(cfg.train.log_dir)
+    steps_logged = [r["step"] for r in recs]
+    ckpt_steps = ckpt.steps()
+    launches = [r["launches_per_step"] for r in first + resumed]
+    walls = {r["step"]: cfg.train.global_batch * 1e3 / r["pairs_per_sec"]
+             for r in recs}
+    coll = resumed[0]["collectives"]
+
+    def coll_ms(name):  # per step: the gradients' and metrics' all-reduces
+        return sum(c["cpu_ms"] for c in coll if c["name"] == name) / (
+            DDP_STEPS - half)
+    # (b): two ranks against one process on the card, same global batches.
+    one = run_steps(cfg32, sd32, batches, device=dev)
+    got = f32[0]
+    metric_rel = [{k: abs(g[k] - w[k]) / abs(w[k]) for k in w}
+                  for g, w in zip(got["metrics"], one["metrics"])]
+    grad_rel_steps = [max(grad_rel(g, w).values())
+                      for g, w in zip(got["grads"], one["grads"])]
+    diffs = {n: (got["params"][n] - w).abs() for n, w in one["params"].items()}
+    inside = sum(int((d <= 2e-6 + 2e-4 * one["params"][n].abs()).sum())
+                 for n, d in diffs.items())
+    total = sum(d.numel() for d in diffs.values())
+    # (c): RAFT's launches per rank.
+    raft_launches = [r["launches_per_step"] for r in raft]
+    # (d): nccl.
+    try:
+        run_ranks(DDP_WORLD, job([dict(kind="mesh", device="cuda:0")],
+                                 backend="nccl"),
+                  os.path.join(RUN_DIR, "ddp_nccl_refused"), timeout=300)
+        refused = "not refused"
+    except RuntimeError as e:
+        refused = "refused" if "backend='gloo'" in str(e) else str(e)[-2000:]
+    nccl = "not run: one card"
+    if torch.cuda.device_count() >= DDP_WORLD:
+        ncfg = train_config("ddp_nccl", summary_interval=1)
+        shutil.rmtree(ncfg.train.log_dir, ignore_errors=True)
+        runs = [r[0] for r in run_ranks(DDP_WORLD, job([dict(
+            kind="train", cfg=ncfg, max_steps=DDP_STEPS, digest=True)],
+            backend="nccl"), os.path.join(RUN_DIR, "ddp_nccl"),
+            timeout=600)]
+        nccl = {"finite": all(_finite(r["final"]) for r in runs),
+                "ranks_equal": _ranks_equal(runs),
+                "launches": [r["launches_per_step"] for r in runs]}
+    shutil.copy(os.path.join(cfg.train.log_dir, "metrics.jsonl"),
+                os.path.join(out_dir, "ddp_train_metrics.jsonl"))
+    row = {"phase": "ddp_train", "world": DDP_WORLD, "backend": "gloo",
+           "device": str(dev), "nvidia_smi": smi,
+           "a_pwcnet_bf16": {
+               "config": f"synthetic-proof, bf16, global batch "
+                         f"{cfg.train.global_batch} at "
+                         f"{cfg.data.augment.crop_hw}, "
+                         f"{cfg.train.global_batch // DDP_WORLD} rows a rank",
+               "launch_seconds": [first_s, second_s],
+               "final": [r["final"] for r in resumed],
+               "steps_logged": steps_logged, "checkpoint_steps": ckpt_steps,
+               "digests_first": [r["params"] for r in first],
+               "checkpoint_digest": ckpt_digest,
+               "digests_final": [r["params"] for r in resumed],
+               "launches_per_step_per_rank": launches,
+               "ms_per_step_wall": walls,
+               "pairs_per_s_step2": cfg.train.global_batch * 1e3 / walls[2],
+               "wall_note": "steps 3-4 ran under the profiler",
+               "rank0_collectives": coll,
+               "rank0_gloo_all_reduce_ms_per_step": coll_ms(
+                   "gloo:all_reduce"),
+               "rank0_c10d_allreduce_ms_per_step": coll_ms(
+                   "c10d::allreduce_")},
+           "b_pwcnet_f32": {
+               "steps": DDP_F32_STEPS, "metrics_two_ranks": got["metrics"],
+               "metrics_one_process": one["metrics"],
+               "metric_rel_err": metric_rel, "metric_tol": TRAIN_TOL,
+               "grad_rel_err_max_per_step": grad_rel_steps,
+               "grad_tol": grad_tol,
+               "params_max_abs_diff": max(d.max().item()
+                                          for d in diffs.values()),
+               "params_share_within_rtol2e-4_atol2e-6": inside / total,
+               "ranks_equal": _ranks_equal(f32)},
+           "c_raft_bf16": {"final": [r["final"] for r in raft],
+                           "launches_per_step_per_rank": raft_launches,
+                           "ranks_equal": _ranks_equal(raft)},
+           "d_nccl": {"two_ranks_one_card": refused, "nccl": nccl}}
+    emit(row)
+    ok_a = (all(_finite(r["final"]) for r in first + resumed)
+            and all(np.isfinite([r["loss"], r["train_epe"], r["grad_norm"]]
+                                ).all() for r in recs)
+            and steps_logged == list(range(1, DDP_STEPS + 1))
+            and ckpt_steps == [half, DDP_STEPS]
+            and [r["final"]["step"] for r in resumed] == [DDP_STEPS] * 2
+            and _ranks_equal(first) and _ranks_equal(resumed)
+            and ckpt_digest == first[0]["params"]
+            and all(lc == TRAIN_LAUNCHES for lc in launches))
+    if not ok_a:
+        raise AssertionError(f"ddp_train (a) failed: {row['a_pwcnet_bf16']}")
+    first_metrics = metric_rel[0].values()
+    if not (max(first_metrics) <= TRAIN_TOL
+            and metric_rel[1]["loss"] <= TRAIN_TOL
+            and grad_rel_steps[0] <= grad_tol and _ranks_equal(f32)):
+        raise AssertionError(f"ddp_train (b) failed: {row['b_pwcnet_f32']}")
+    if not (all(_finite(r["final"]) for r in raft) and _ranks_equal(raft)
+            and all(lc == RAFT_TRAIN_LAUNCHES for lc in raft_launches)):
+        raise AssertionError(f"ddp_train (c) failed: {row['c_raft_bf16']}")
+    if refused != "refused" or (isinstance(nccl, dict) and not (
+            nccl["finite"] and nccl["ranks_equal"])):
+        raise AssertionError(f"ddp_train (d) failed: {row['d_nccl']}")
+    return {"launches_per_step": launches[0]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -2829,7 +3104,7 @@ def main() -> int:
           "kernel_launches_per_frame": n_launch, "top": top})
 
     # -- 5b. The trainer ------------------------------------------------
-    train_launches = train_phases(out_dir, dev, smi, timer)
+    train_launches, f32_grad_tol = train_phases(out_dir, dev, smi, timer)
     fused_launches = fused_train(dev, timer, smi)
 
     # -- 5c. The file datasets: trees written under the output directory,
@@ -2853,6 +3128,11 @@ def main() -> int:
         raft_fwd = raft_forward(dev, timer, smi)
         raft_tr = raft_train(out_dir, dev, smi, timer)
         raft_cli(out_dir, roots)
+
+        # -- 5e. The trained PWC-Net checkpoint; data-parallel training on
+        # two gloo ranks sharing the card ------------------------------------
+        pwc_trained(dev, smi)
+        ddp = ddp_train(out_dir, dev, smi, f32_grad_tol)
     finally:
         shutil.rmtree(tree_dir, ignore_errors=True)
         shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -2908,6 +3188,10 @@ def main() -> int:
         for label, shapes in (("train", RAFT_TRAIN), ("448x1024", RAFT_INFER)):
             for key in ("ms", "bound_ms", "plain_ms"):
                 k["raft"][f"{key}_{label}"] = sum(rs[sh][key] for sh in shapes)
+    # K1-K5 under data parallelism: launches per step on each rank.
+    for k in kernels[:5]:
+        k["ddp_launches_per_step_per_rank"] = ddp["launches_per_step"][
+            k["name"]]
     emit({"phase": "raft_levels", "levels": {
         name: [{k: r[k] for k in ("shape", "plan", "ms", "bound_ms",
                                   "plain_ms")} for r in rs.values()]

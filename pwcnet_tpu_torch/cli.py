@@ -1,6 +1,6 @@
 """Command line of the port (counterpart of ``pwcnet_tpu/cli.py``):
 
-    python -m pwcnet_tpu_torch.cli train   --preset chairs-1chip [--max-steps N] data.root=DIR [section.field=value ...]
+    python -m pwcnet_tpu_torch.cli train   --preset chairs-1chip [--max-steps N] [--backend nccl|gloo] data.root=DIR [section.field=value ...]
     python -m pwcnet_tpu_torch.cli eval    --preset sintel-eval [--ckpt DIR] [--split val] data.root=DIR [...]
     python -m pwcnet_tpu_torch.cli predict --im1 a.png --im2 b.png [--ckpt DIR] [--out flow.flo] [--vis flow.png]
     python -m pwcnet_tpu_torch.cli match   --im1 a.png --im2 b.png [--ckpt DIR] [--out matches.txt] [--grid-step 8] [--fb-threshold 1.5]
@@ -14,6 +14,12 @@ selects RAFT. It runs on the GPU;
 versions of the kernels). With no GPU and no such setting it raises.
 ``--ckpt`` is a directory of the port's ``CheckpointManager``
 (``step_<n>.pt``); an Orbax directory of the JAX package is refused.
+``train`` runs data-parallel on N processes, one per card: start each with
+``parallel.num_processes=N parallel.process_id=<rank>
+parallel.coordinator=<host:port of rank 0>``, or all of them with
+``torchrun --nproc_per_node=N -m pwcnet_tpu_torch.cli train ...``.
+``--backend`` picks the collectives (default: ``nccl`` on the GPU,
+``gloo`` on the CPU; ``gloo`` lets several ranks share one card).
 ``parity`` is not ported yet (ROADMAP A9).
 """
 
@@ -73,7 +79,7 @@ def _model(cfg, ckpt: Optional[str]):
 def cmd_train(args) -> int:
     from pwcnet_tpu_torch.train.loop import train
     metrics = train(_load_cfg(args), max_steps=args.max_steps,
-                    device=_device())
+                    device=_device(), backend=args.backend)
     print(json.dumps(metrics))
     return 0
 
@@ -158,6 +164,9 @@ def main(argv=None) -> int:
     p = sub.add_parser("train", help="run training")
     common(p)
     p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="collectives of a data-parallel run (default: nccl "
+                        "on the GPU, gloo on the CPU)")
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="evaluate a checkpoint on a dataset")

@@ -12,8 +12,10 @@ or a wrong shape raises.
 
 ``read_flax_npz`` reads a checkpoint flattened to an ``.npz`` of
 ``params/<flax path>`` keys, such as ``runs/raft-synthetic/
-params_step20000_bf16.npz``, whose bf16 arrays numpy stores as raw 2-byte
-records (``|V2``).
+params_step20000_bf16.npz`` (bf16 stored as raw 2-byte records, ``|V2``) or
+``runs/synthetic-proof/params_step125000_bf16.npz`` (bf16 stored as
+``uint16`` views). ``load_flax_params`` refuses a value that is not
+floating point.
 """
 
 from __future__ import annotations
@@ -104,9 +106,11 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def read_flax_npz(path: str) -> dict:
     """The nested ``params`` tree of an ``.npz`` whose keys are
-    ``params/<flax path>``, as torch tensors. A 2-byte raw array (``|V2``,
-    how numpy stores bf16 without a bf16 type) is read as bf16: its bits
-    viewed as a 16-bit integer, then as ``torch.bfloat16``."""
+    ``params/<flax path>``, as torch tensors. Every 2-byte array that is
+    not a float16 one (raw ``|V2`` records, ``<u2`` or ``<i2``: the ways
+    numpy stores bf16 without a bf16 type) is read as bf16: its bits viewed
+    as ``int16``, then as ``torch.bfloat16``. A flax params tree holds no
+    integers, so this rule cannot misread a real parameter."""
     tree: dict = {}
     with np.load(path) as z:
         for key in z.files:
@@ -114,7 +118,7 @@ def read_flax_npz(path: str) -> dict:
             if parts[0] != "params":
                 raise KeyError(f"{path}: key {key!r} is not under params/")
             a = z[key]
-            if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+            if a.dtype.kind in "Vui" and a.dtype.itemsize == 2:
                 t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
                                      ).view(torch.bfloat16)
             else:
@@ -138,7 +142,7 @@ def torch_key(flax_path: str) -> str:
 @torch.no_grad()
 def load_flax_params(model: nn.Module, params: Mapping) -> None:
     """Fill ``model`` (a port ``PWCNet`` or ``RAFT``) from flax ``params``
-    in place."""
+    in place. A value that is not floating point raises ``TypeError``."""
     state = model.state_dict()
     filled = set()
     for path, value in _flatten(_to_model_layout(model, params)).items():
@@ -147,6 +151,11 @@ def load_flax_params(model: nn.Module, params: Mapping) -> None:
             raise KeyError(f"flax parameter {path!r} maps to {key!r}, which "
                            "the port's model does not have")
         value = value if torch.is_tensor(value) else torch.tensor(value)
+        if not value.is_floating_point():
+            raise TypeError(f"flax parameter {path!r} has dtype "
+                            f"{value.dtype}, not a floating-point one (bf16 "
+                            "bits stored as integers: read the .npz with "
+                            "read_flax_npz)")
         if value.ndim == 4:
             value = value.permute(3, 2, 0, 1)  # HWIO -> OIHW
         if tuple(value.shape) != tuple(state[key].shape):

@@ -16,7 +16,10 @@ replay those bits. So the port splits the work in two:
   batch on any device given those scalars and the noise (a tensor, or a
   generator on the batch's device to draw it from).
 
-``augment_batch`` is the two together. The transform follows JAX's order
+``augment_batch`` is the two together. Under data parallelism each rank
+draws from ``fold_in(generator, rank)`` (JAX folds the data-axis index into
+the step's key), so the ranks augment their rows differently while the
+shared generator stays in step. The transform follows JAX's order
 and semantics: crop at ``randint(0, max(h - th, 0) + 1)``, then hflip
 (negating u), then vflip (negating v), then ``(im - mean) * c + mean + b``
 (mean per sample and channel over H, W), clip to [0, 1], ``** g``,
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from pwcnet_tpu_torch.config import AugmentConfig
@@ -77,6 +81,17 @@ def draw_augment_params(generator: torch.Generator, n: int,
     p[:, PHOTO[1]:PHOTO[1] + 6] = torch.where(asym, frame[1], frame[0])
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
     return p, seed
+
+
+def fold_in(generator: torch.Generator, index: int) -> torch.Generator:
+    """A CPU generator for data shard ``index``: one draw from
+    ``generator`` (the same draw on every shard, so the shared generator
+    stays in step), mixed with ``index`` through ``np.random.SeedSequence``.
+    """
+    value = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+    seed = np.random.SeedSequence((value, index)).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed))
 
 
 def draw_noise(generator: torch.Generator, params: torch.Tensor,

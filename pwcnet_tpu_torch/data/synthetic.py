@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from pwcnet_tpu_torch.data.base import FlowDataset, register_dataset
+from pwcnet_tpu_torch.parallel.mesh import local_batch_size
 
 N_WAVES = 24
 WAVELEN_RANGE = (8.0, 128.0)   # px, log-uniform
@@ -255,7 +256,7 @@ class SyntheticFlow(FlowDataset):
 
 def make_device_batcher(global_batch: int, hw: Tuple[int, int],
                         seed: int = 17, regime: str = "smooth",
-                        device="cuda"):
+                        device="cuda", mesh=None):
     """``step -> batch``: a dict of im1, im2 (N, H, W, 3), flow (N, H, W, 2)
     and valid (N, H, W), f32 on ``device``.
 
@@ -263,13 +264,19 @@ def make_device_batcher(global_batch: int, hw: Tuple[int, int],
     ``np.random.default_rng((seed, 2, s, i))`` (stream tag 2, apart from the
     JAX package's host train/val streams 0 and 1) and renders them on the
     device, so the batches are deterministic in (seed, step) and a resumed
-    run sees the same stream. The JAX device batcher draws with
-    ``jax.random``, whose bits torch cannot reproduce: the two batchers give
-    the same law, not the same samples. Parity is held on ``_render``.
+    run sees the same stream. Under a data ``mesh`` rank r renders only its
+    rows ``[r*N/p, (r+1)*N/p)`` of the global batch, with their global
+    indices i: the ranks' rows together are the one-process batch. The JAX
+    device batcher draws with ``jax.random``, whose bits torch cannot
+    reproduce: the two batchers give the same law, not the same samples.
+    Parity is held on ``_render``.
     """
+    n = local_batch_size(global_batch, mesh)
+    first = 0 if mesh is None else mesh.rank * n
+
     def batch(step: int) -> Dict[str, torch.Tensor]:
         samples = []
-        for i in range(global_batch):
+        for i in range(first, first + n):
             rng = np.random.default_rng((seed, 2, int(step), i))
             p = _scale_pos(_host_params(rng, regime), hw)
             samples.append(_render(hw, to_device(p, device)))

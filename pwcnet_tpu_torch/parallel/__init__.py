@@ -1,13 +1,18 @@
-"""The port's spatial (image-H) sharding over ``torch.distributed``."""
+"""The port's data parallelism and spatial (image-H) sharding over
+``torch.distributed``."""
 
 from pwcnet_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,
     MODEL_AXIS,
     SPATIAL_AXIS,
+    DataMesh,
     MeshConfig,
+    ProcessMesh,
     SpatialMesh,
     initialize_distributed,
+    local_batch_size,
     make_mesh,
+    shard_batch,
 )
 from pwcnet_tpu_torch.parallel.halo import (  # noqa: F401
     exchange_halo,

@@ -1,13 +1,13 @@
-"""Run spatially sharded jobs in one process per rank on this machine.
+"""Run jobs in one process per rank on this machine: spatially sharded
+inference, and data-parallel training.
 
     python -m pwcnet_tpu_torch.parallel.launch RANK WORLD PORT JOB OUT_DIR
 
 is one rank: it joins a ``torch.distributed`` group of WORLD processes at
-``tcp://localhost:PORT``, makes the spatial mesh, runs the tasks of the job
-file (``torch.save`` of a dict) and writes its results to
-``OUT_DIR/rank<RANK>.pt``. ``run_ranks`` starts all ranks, waits for them
-under one time limit, stops them all if one fails, and returns every rank's
-results.
+``tcp://localhost:PORT``, runs the tasks of the job file (``torch.save`` of
+a dict) and writes its results to ``OUT_DIR/rank<RANK>.pt``. ``run_ranks``
+starts all ranks, waits for them under one time limit, stops them all if
+one fails, and returns every rank's results.
 
 A job: ``{"backend": "gloo" | "nccl", "device": "cpu" | "cuda" | "cuda:0",
 "threads": int or None, "allow_tf32": bool or None, "tasks": [...]}`` with
@@ -18,11 +18,27 @@ tasks
   "im2": global images, "reps": int, "profile": bool}``: ``spatial_forward``
   once with the kernel launch counts of that call, then ``reps`` timed
   calls, then (``profile``) one call under ``torch.profiler``: the host
-  operators that take the most time and the device's busy time.
+  operators that take the most time and the device's busy time;
+- ``{"kind": "mesh", "backend":, "device":}``: the data mesh of all ranks
+  (``make_mesh(MeshConfig(data=WORLD))``, by default with the job's backend
+  and device): its rank, size, device and backend;
+- ``{"kind": "train", "cfg": Config, "max_steps": int, "digest": bool,
+  "profile": bool}``: ``train_with_state(cfg, max_steps)`` on this rank
+  (the job's device and backend; ``cfg.parallel`` names the group, e.g.
+  ``data=-1``): its final metrics, the kernel launches per step (the run
+  takes ``max_steps`` steps), the wall seconds, and the final parameters
+  (on the CPU), or their SHA-256 with ``digest``; with ``profile``, the
+  run's collective host operators (``torch.profiler``, CPU activity);
+- ``{"kind": "step", "cfg": Config, "state_dict": ..., "batches": [global
+  batches], "aug": bool}``: ``run_steps`` on the data mesh of all ranks;
+- ``{"kind": "eval", "cfg": Config, "state_dict": ..., "dataset":
+  FlowDataset, "batch": int, "limit": int}``: ``evaluate_dataset`` on the
+  data mesh of all ranks.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import socket
 import statistics
@@ -49,6 +65,107 @@ def _launches() -> dict:
             if v}
 
 
+def _reset_launches() -> None:
+    for m in _kernel_modules():
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def params_digest(model: torch.nn.Module) -> str:
+    """SHA-256 of every parameter's bits, in ``named_parameters`` order."""
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().cpu().contiguous().view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+# Host operators of the collectives, as torch.profiler names them.
+_COLLECTIVE = ("allreduce", "all_reduce", "allgather", "all_gather",
+               "broadcast", "barrier", "gloo", "nccl")
+
+
+def run_steps(cfg, state_dict: dict, batches: List[dict], mesh=None,
+              aug: bool = False, device="cpu") -> dict:
+    """``make_train_step`` of ``cfg`` (model, optimizer, loss, clipping,
+    ``cfg.data.augment`` when ``aug``) from ``state_dict``, one step per
+    global batch: on a data ``mesh``, this rank's rows on the mesh's
+    device; without one, the whole batch on ``device``. Returns the
+    metrics and the gradients of each step, and the final parameters and
+    the generator's state, on the CPU."""
+    from pwcnet_tpu_torch.parallel.mesh import shard_batch
+    from pwcnet_tpu_torch.train.loop import build_model
+    from pwcnet_tpu_torch.train.schedule import optimizer_from_config
+    from pwcnet_tpu_torch.train.state import TrainState
+    from pwcnet_tpu_torch.train.step import make_train_step
+    dev = torch.device(device) if mesh is None else mesh.device
+    model = build_model(cfg, dev)
+    model.load_state_dict(state_dict)
+    opt, sched = optimizer_from_config(model.parameters(), cfg.train)
+    step = make_train_step(model, opt, sched, loss_kind=cfg.train.loss,
+                           level_weights=cfg.train.level_weights,
+                           grad_clip=cfg.train.grad_clip,
+                           aug=cfg.data.augment if aug else None, mesh=mesh)
+    state = TrainState.create(model, opt, sched, seed=cfg.train.seed + 1)
+    metrics, grads = [], []
+    for b in batches:
+        state, m = step(state, {k: v.to(dev) for k, v in
+                                shard_batch(mesh, b).items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    return {"metrics": metrics, "grads": grads,
+            "params": {n: p.detach().cpu()
+                       for n, p in model.named_parameters()},
+            "generator": state.generator.get_state()}
+
+
+def _eval(task: dict, mesh) -> dict:
+    from pwcnet_tpu_torch.train.evaluate import evaluate_dataset
+    from pwcnet_tpu_torch.train.loop import build_model
+    model = build_model(task["cfg"], mesh.device).eval()
+    model.load_state_dict(task["state_dict"])
+    return evaluate_dataset(model, task["dataset"], batch=task["batch"],
+                            limit=task.get("limit"), mesh=mesh)
+
+
+def _train(task: dict, job: dict) -> dict:
+    from pwcnet_tpu_torch.train.loop import train_with_state
+    dev = torch.device(job["device"])
+    _sync(dev)
+    _reset_launches()
+    prof = None
+    if task.get("profile"):
+        from torch.profiler import ProfilerActivity, profile
+        prof = profile(activities=[ProfilerActivity.CPU])
+        prof.start()
+    t0 = time.perf_counter()
+    try:
+        final, state = train_with_state(task["cfg"], task["max_steps"],
+                                        device=dev, backend=job["backend"])
+        _sync(state.model.device)
+    finally:
+        if prof is not None:
+            prof.stop()
+    out = {"final": final,
+           "launches_per_step": {k: v / task["max_steps"]
+                                 for k, v in _launches().items()},
+           "wall_s": time.perf_counter() - t0,
+           "params": params_digest(state.model) if task.get("digest") else
+           {n: p.detach().cpu() for n, p in state.model.named_parameters()}}
+    if prof is not None:
+        out["collectives"] = [
+            {"name": e.key[:60], "calls": e.count,
+             "cpu_ms": e.cpu_time_total / 1e3}
+            for e in prof.key_averages()
+            if any(c in e.key.lower() for c in _COLLECTIVE)]
+    return out
+
+
 def _forward(task: dict, mesh) -> dict:
     from pwcnet_tpu_torch import PWCNet
     from pwcnet_tpu_torch.parallel.spatial import spatial_forward
@@ -62,9 +179,7 @@ def _forward(task: dict, mesh) -> dict:
 
     with torch.inference_mode():
         sync()
-        for m in _kernel_modules():
-            for k in m.LAUNCHES:
-                m.LAUNCHES[k] = 0
+        _reset_launches()
         flows, full = run()
         sync()
         launches = _launches()
@@ -123,19 +238,44 @@ def worker(rank: int, world: int, port: int, job_path: str,
         torch.backends.cudnn.allow_tf32 = job["allow_tf32"]
         torch.backends.cuda.matmul.allow_tf32 = job["allow_tf32"]
     initialize_distributed(f"localhost:{port}", world, rank, job["backend"])
+    meshes = {}
+
+    def mesh(axis: str):
+        if axis not in meshes:
+            cfg = (MeshConfig(data=world) if axis == "data"
+                   else MeshConfig(data=1, spatial=world))
+            meshes[axis] = make_mesh(cfg, backend=job["backend"],
+                                     device=job["device"])
+        return meshes[axis]
+
     try:
-        mesh = make_mesh(MeshConfig(spatial=world), backend=job["backend"],
-                         device=job["device"])
         results = []
         for task in job["tasks"]:
-            if task["kind"] == "exchange":
-                x = shard_rows(task["x"], mesh).to(mesh.device)
+            kind = task["kind"]
+            if kind == "exchange":
+                m = mesh("spatial")
+                x = shard_rows(task["x"], m).to(m.device)
                 results.append(exchange_rows(x, task["top"], task["bottom"],
-                                             mesh).cpu())
-            elif task["kind"] == "forward":
-                results.append(_forward(task, mesh))
+                                             m).cpu())
+            elif kind == "forward":
+                results.append(_forward(task, mesh("spatial")))
+            elif kind == "mesh":
+                m = make_mesh(MeshConfig(data=world),
+                              backend=task.get("backend", job["backend"]),
+                              device=task.get("device", job["device"]))
+                results.append({"rank": m.rank, "size": m.size,
+                                "device": str(m.device),
+                                "backend": m.backend})
+            elif kind == "train":
+                results.append(_train(task, job))
+            elif kind == "step":
+                results.append(run_steps(task["cfg"], task["state_dict"],
+                                         task["batches"], mesh("data"),
+                                         task.get("aug", False)))
+            elif kind == "eval":
+                results.append(_eval(task, mesh("data")))
             else:
-                raise ValueError(f"unknown task kind {task['kind']!r}")
+                raise ValueError(f"unknown task kind {kind!r}")
         torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         if dist.is_initialized():
@@ -192,7 +332,7 @@ def run_ranks(world: int, job: dict, out_dir: str, timeout: float = 600.0
             tails.append(f"--- rank {r} ---\n{f.read()[-3000:]}")
             f.close()
     if failed:
-        raise RuntimeError(f"spatial job failed: {failed}\n"
+        raise RuntimeError(f"job failed: {failed}\n"
                            + "\n".join(tails))
     return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)]

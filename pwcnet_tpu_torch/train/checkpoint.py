@@ -6,7 +6,12 @@ a temporary file and moved into place with ``os.replace``, so a crash never
 leaves a half-written checkpoint under a checkpoint's name. The newest
 ``max_to_keep`` are kept. Restoring loads the model, the optimizer's
 moments, the scheduler, the generator and the step, so a resumed run
-continues exactly. The weight bridge's ``remap_stem_params`` lives in
+continues exactly. Under several processes only process 0 writes and
+prunes, and every process waits at a barrier after a save, so that none
+reads a partial directory; every process restores from the same file. The
+state holds the model itself, never a ``DistributedDataParallel`` wrapper,
+so a checkpoint of several ranks resumes in one process and the other way
+round. The weight bridge's ``remap_stem_params`` lives in
 ``pwcnet_tpu_torch.compat.flax_weights``.
 """
 
@@ -17,7 +22,9 @@ import re
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
+from pwcnet_tpu_torch.parallel.mesh import process_count, process_index
 from pwcnet_tpu_torch.train.state import TrainState
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
@@ -44,15 +51,18 @@ class CheckpointManager:
 
     def save(self, state: TrainState) -> str:
         path = self._path(state.step)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        try:
-            torch.save(state.state_dict(), tmp)
-            os.replace(tmp, path)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-        for old in self.steps()[:-self._keep] if self._keep > 0 else []:
-            os.remove(self._path(old))
+        if process_index() == 0:
+            tmp = f"{path}.{os.getpid()}.tmp"
+            try:
+                torch.save(state.state_dict(), tmp)
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+            for old in self.steps()[:-self._keep] if self._keep > 0 else []:
+                os.remove(self._path(old))
+        if process_count() > 1:
+            dist.barrier()
         return path
 
     def load(self, step: Optional[int] = None) -> dict:

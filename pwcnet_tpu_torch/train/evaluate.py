@@ -15,6 +15,8 @@ from pwcnet_tpu_torch.data.base import FlowDataset
 from pwcnet_tpu_torch.data.pipeline import eval_batches
 from pwcnet_tpu_torch.models.pwcnet import PWCNet
 from pwcnet_tpu_torch.models.raft import RAFT
+from pwcnet_tpu_torch.parallel.mesh import (ProcessMesh, local_batch_size,
+                                            shard_batch)
 from pwcnet_tpu_torch.train.step import make_eval_step
 
 
@@ -45,20 +47,24 @@ def predict_flow(model: Union[PWCNet, RAFT], im1: np.ndarray,
 
 
 def evaluate_dataset(model: Union[PWCNet, RAFT], dataset: FlowDataset,
-                     batch: int = 4,
-                     limit: Optional[int] = None) -> Dict[str, float]:
+                     batch: int = 4, limit: Optional[int] = None,
+                     mesh: Optional[ProcessMesh] = None) -> Dict[str, float]:
     """Mean EPE and Fl-all (%) over the first ``limit`` samples, masked by
     validity (padding is invalid), with the EPE by GT magnitude and the
     per-sample means and standard errors: the JAX function's keys.
 
-    The sums stay on the model's device and are fetched once at the end.
+    Under a data ``mesh`` every rank calls this; each evaluates its rows of
+    each eval batch of ``batch`` pairs (which must divide over the ranks),
+    and every rank returns the same dict. The sums stay on the model's
+    device and are fetched once at the end.
     """
-    step = make_eval_step(model)
+    local_batch_size(batch, mesh)
+    step = make_eval_step(model, mesh)
     totals, samples = None, []
     for b in eval_batches(dataset, batch, limit=limit,
                           div=model.pad_divisor):
         out = step({k: torch.from_numpy(v).to(model.device)
-                    for k, v in b.items()})
+                    for k, v in shard_batch(mesh, b).items()})
         samples.append(out[4])
         totals = out[:4] if totals is None else tuple(
             t + o for t, o in zip(totals, out[:4]))

@@ -1,7 +1,10 @@
 """The trainer (counterpart of ``pwcnet_tpu/train/loop.py``) for PWC-Net
-and RAFT on one device.
+and RAFT, on one device or data-parallel over several processes.
 
-``train(cfg, max_steps, device=None)`` builds the model and optimizer,
+``train(cfg, max_steps, device=None, backend=None)`` joins the process
+group that ``cfg.parallel`` names (``initialize_distributed``: JAX's
+``coordinator`` / ``num_processes`` / ``process_id``, or ``torchrun``'s
+environment), makes the mesh, builds the model and optimizer,
 resumes from the latest checkpoint under ``<log_dir>/ckpt``, and runs the
 steps on batches of the config's dataset: for the file datasets (and
 ``synthetic`` without ``device_gen``) from the host ``Loader``, copied to
@@ -16,6 +19,14 @@ where a NaN appears (``nan_checks``); ``train.profile_dir`` traces the run
 with ``torch.profiler``. It runs on the GPU unless ``device="cpu"``. What
 the config asks for and the port does not have yet raises
 ``NotImplementedError`` naming its ROADMAP item.
+
+Under a data mesh of N processes (one per card under ``nccl``; several may
+share a card under ``gloo``) each rank trains on its rows of every global
+batch: the Loader's rows of the process, or the device batcher's rows of
+the rank. Metrics are the ranks' means; process 0 alone writes the metrics,
+the eval images, the profile and the checkpoints, and every rank resumes
+from the same checkpoint. A lone process on a machine with several cards
+trains on one card and logs how to start one rank per card.
 """
 
 from __future__ import annotations
@@ -23,7 +34,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,6 +45,9 @@ from pwcnet_tpu_torch.data.pipeline import Loader
 from pwcnet_tpu_torch.data.synthetic import make_device_batcher
 from pwcnet_tpu_torch.models.pwcnet import PWCNet, _resolve_device
 from pwcnet_tpu_torch.models.raft import RAFT
+from pwcnet_tpu_torch.parallel.mesh import (MeshConfig, ProcessMesh,
+                                            initialize_distributed, make_mesh,
+                                            process_count, process_index)
 from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
 from pwcnet_tpu_torch.train.evaluate import evaluate_dataset, predict_flow
 from pwcnet_tpu_torch.train.metrics import MetricsWriter
@@ -76,16 +90,28 @@ def build_model(cfg: Config, device=None) -> Union[PWCNet, RAFT]:
         generator=generator)
 
 
-def _check_ported(cfg: Config, dev: torch.device) -> None:
+def _check_ported(cfg: Config) -> None:
     """Raise for what the config needs and the port does not have."""
     p = cfg.parallel
-    n_dev = (torch.cuda.device_count() if dev.type == "cuda" else 1) \
-        if p.data == -1 else p.data
-    if n_dev * p.spatial * p.model > 1 or (p.num_processes or 1) > 1:
-        raise NotImplementedError("a mesh larger than one device needs DDP "
-                                  "(ROADMAP A6); the spatial path runs "
-                                  "inference only (training across shards: "
-                                  "ROADMAP A7)")
+    if p.spatial > 1:
+        raise NotImplementedError("training across spatial shards needs the "
+                                  "halo exchange's backward (ROADMAP A7); "
+                                  "the spatial path runs inference only")
+    if p.model > 1:
+        raise NotImplementedError("the model axis is reserved and must be 1")
+
+
+def _log_idle_cards(cfg: Config, mesh: ProcessMesh) -> None:
+    """A lone process on a machine with several cards trains on one of
+    them; say so once, with how to start one rank per card."""
+    n = torch.cuda.device_count() if mesh.device.type == "cuda" else 1
+    if mesh.size == 1 and n > 1 and cfg.parallel.data == -1:
+        _log.warning(
+            "training on %s alone leaves %d of this machine's %d cards "
+            "idle; start one rank per card, e.g. torchrun --nproc_per_node="
+            "%d -m pwcnet_tpu_torch.cli train ..., or N processes with "
+            "parallel.num_processes=N parallel.process_id=<rank> "
+            "parallel.coordinator=<host:port>", mesh.device, n - 1, n, n)
 
 
 @contextlib.contextmanager
@@ -136,16 +162,20 @@ def to_device(batch: Dict[str, np.ndarray], dev: torch.device
 
 
 def _evaluate(cfg: Config, model, val_ds, writer: MetricsWriter,
-              step: int, final: dict, failures: list) -> None:
-    """The periodic eval: val metrics into the log and ``final``, then flow
-    images of val sample 0 (a failure there is logged once per run, counted
-    in ``failures``, and training goes on, as in the JAX trainer)."""
+              step: int, final: dict, failures: list,
+              mesh: ProcessMesh) -> None:
+    """The periodic eval on every rank: val metrics into the log and
+    ``final``, then (process 0) flow images of val sample 0 (a failure
+    there is logged once per run, counted in ``failures``, and training
+    goes on, as in the JAX trainer)."""
     ev = evaluate_dataset(model, val_ds, batch=cfg.data.eval_batch,
-                          limit=cfg.train.eval_limit)
+                          limit=cfg.train.eval_limit, mesh=mesh)
     writer.scalars(step, {"val_epe": ev["epe"], "val_fl_all": ev["fl_all"],
                           **{f"val_{k}": v for k, v in ev.items()
                              if k.startswith("epe_s")}})
     final["val_epe"], final["val_fl_all"] = ev["epe"], ev["fl_all"]
+    if process_index() != 0:
+        return
     try:
         s0 = val_ds[0]
         pred = predict_flow(model, s0["im1"], s0["im2"])
@@ -160,11 +190,29 @@ def _evaluate(cfg: Config, model, val_ds, writer: MetricsWriter,
         failures.append(step)
 
 
-def train(cfg: Config, max_steps: Optional[int] = None,
-          device=None) -> dict:
-    """Train per ``cfg``; returns the last summary's metrics and ``step``."""
+def train(cfg: Config, max_steps: Optional[int] = None, device=None,
+          backend: Optional[str] = None) -> dict:
+    """Train per ``cfg``; returns the last summary's metrics and ``step``.
+    ``backend`` is the collective backend of a data mesh: None means
+    ``"nccl"`` on CUDA and ``"gloo"`` on the CPU."""
+    return train_with_state(cfg, max_steps, device, backend)[0]
+
+
+def train_with_state(cfg: Config, max_steps: Optional[int] = None,
+                     device=None, backend: Optional[str] = None
+                     ) -> Tuple[dict, TrainState]:
+    """``train``, also returning the final ``TrainState``."""
+    _check_ported(cfg)
     dev = _resolve_device(device)
-    _check_ported(cfg, dev)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    p = cfg.parallel
+    initialize_distributed(p.coordinator, p.num_processes, p.process_id,
+                           backend)
+    mesh = make_mesh(MeshConfig(data=p.data, spatial=p.spatial,
+                                model=p.model), backend=backend, device=dev)
+    _log_idle_cards(cfg, mesh)
+    dev = mesh.device
     model = build_model(cfg, dev)
     optimizer, scheduler = optimizer_from_config(model.parameters(),
                                                  cfg.train)
@@ -195,11 +243,13 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                              **ds_kw)
     except (FileNotFoundError, ValueError):
         val_ds = None  # no val split: no periodic eval
+    # Under a data mesh DDP broadcasts rank 0's weights here.
     step_fn = make_train_step(model, optimizer, scheduler,
                               loss_kind=cfg.train.loss,
                               level_weights=cfg.train.level_weights,
                               grad_clip=cfg.train.grad_clip,
-                              aug=None if use_devgen else cfg.data.augment)
+                              aug=None if use_devgen else cfg.data.augment,
+                              mesh=mesh)
     train_ds = None if use_devgen else get_dataset(
         cfg.data.name, cfg.data.root, split="train", **ds_kw)
     writer = MetricsWriter(cfg.train.log_dir)
@@ -214,14 +264,15 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                                           cfg.data.augment.crop_hw,
                                           seed=cfg.train.seed,
                                           regime=cfg.data.synthetic_regime,
-                                          device=dev)
+                                          device=dev, mesh=mesh)
         else:
             loader = Loader(train_ds, cfg.train.global_batch,
                             sample_hw=cfg.data.sample_hw,
                             seed=cfg.train.seed,
                             num_threads=cfg.data.num_threads,
-                            start_step=start)
-        if cfg.train.profile_dir:
+                            start_step=start, process_index=mesh.rank,
+                            process_count=mesh.size)
+        if cfg.train.profile_dir and process_index() == 0:
             from torch.profiler import (ProfilerActivity, profile,
                                         tensorboard_trace_handler)
             prof = profile(
@@ -243,14 +294,15 @@ def train(cfg: Config, max_steps: Optional[int] = None,
                     dt = time.perf_counter() - t_last
                     metrics.update(lr=lr_at(cfg.train.schedule, step),
                                    pairs_per_sec=pairs_since / dt,
-                                   pairs_per_sec_per_chip=pairs_since / dt)
+                                   pairs_per_sec_per_chip=pairs_since / dt
+                                   / process_count())
                     writer.scalars(step, metrics)
                     final = metrics
                     t_last, pairs_since = time.perf_counter(), 0
                 every = cfg.train.eval_interval
                 if val_ds is not None and every > 0 and step % every == 0:
                     _evaluate(cfg, model, val_ds, writer, step, final,
-                              summary_failures)
+                              summary_failures, mesh)
                 if step % cfg.train.checkpoint_interval == 0 or \
                         step == total:
                     ckpt.save(state)
@@ -261,4 +313,4 @@ def train(cfg: Config, max_steps: Optional[int] = None,
             prof.stop()  # writes the trace into profile_dir
         writer.close()
     final["step"] = state.step
-    return final
+    return final, state

@@ -1,5 +1,5 @@
-"""The train and eval steps (counterpart of ``pwcnet_tpu/train/step.py``,
-single device), for PWC-Net and RAFT.
+"""The train and eval steps (counterpart of ``pwcnet_tpu/train/step.py``),
+for PWC-Net and RAFT, on one process or data-parallel over a ``DataMesh``.
 
 A train step is forward, loss, ``backward()`` (through the kernels' autograd
 Functions on the GPU), optional clipping, the optimizer update and one
@@ -12,6 +12,15 @@ RAFT's pixels at their resolution times the image's H over theirs) and
 ``grad_norm`` (the global norm of the raw gradients, before clipping).
 They stay on the device as 0-d tensors; the caller reads them when it
 needs them.
+
+Under a data mesh of more than one process each rank steps on its rows of
+the global batch, as JAX's ``shard_map`` step does: the model runs under
+``DistributedDataParallel``, which averages the gradients before the
+clipping and the update (JAX's ``pmean`` of the grads), ``grad_norm`` is
+the norm of the averaged gradients, and ``loss`` and ``train_epe`` are the
+ranks' means. The augmentation draws from ``fold_in(state.generator,
+rank)``. The eval step sums over the ranks and gathers ``per_sample`` in
+rank order.
 """
 
 from __future__ import annotations
@@ -19,15 +28,24 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from pwcnet_tpu_torch.config import AugmentConfig
-from pwcnet_tpu_torch.data.augment import augment_batch
+from pwcnet_tpu_torch.data.augment import augment_batch, fold_in
 from pwcnet_tpu_torch.losses import (LEVEL_WEIGHTS, downsample_gt, epe,
                                      fl_outliers, multiscale_loss,
                                      robust_loss, sequence_loss)
+from pwcnet_tpu_torch.parallel.halo import to_comm
+from pwcnet_tpu_torch.parallel.mesh import ProcessMesh
+from pwcnet_tpu_torch.parallel.spatial_ops import all_reduce_sum
 from pwcnet_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
+
+
+def _distributed(mesh: Optional[ProcessMesh]) -> bool:
+    return mesh is not None and mesh.size > 1
 
 
 def _make_loss(loss_kind: str, model,
@@ -52,30 +70,41 @@ def make_train_step(model, optimizer, scheduler,
                     loss_kind: str = "multiscale",
                     level_weights: Optional[Sequence[float]] = None,
                     grad_clip: float = 0.0,
-                    aug: Optional[AugmentConfig] = None
+                    aug: Optional[AugmentConfig] = None,
+                    mesh: Optional[ProcessMesh] = None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch) -> (state, metrics)``; ``batch`` holds f32 im1,
     im2 (N, H, W, 3), flow (N, H, W, 2) and valid (N, H, W) on the model's
-    device. With ``aug``, the step first augments the batch: the scalars
-    drawn on ``state.generator`` (CPU), the noise on the model's device from
-    a generator seeded by a draw of the same, so a restored state replays
-    the augmentation. ``state`` is advanced in place and returned."""
+    device: this rank's rows under a data ``mesh``. With ``aug``, the step
+    first augments the batch: the scalars drawn on ``state.generator``
+    (CPU; under a mesh on ``fold_in`` of it and the rank), the noise on the
+    model's device from a generator seeded by a draw of the same, so a
+    restored state replays the augmentation. ``state`` is advanced in place
+    and returned. Under a mesh, ``DistributedDataParallel`` broadcasts
+    rank 0's parameters when the step is made."""
     loss_fn = _make_loss(loss_kind, model, level_weights)
     params = [p for p in model.parameters() if p.requires_grad]
     noise_gen = torch.Generator(device=model.device) if aug else None
+    distributed = _distributed(mesh)
+    # No model holds a buffer that changes, so none is broadcast per step.
+    net = DistributedDataParallel(
+        model, process_group=mesh.group, broadcast_buffers=False
+    ) if distributed else model
 
     def step(state: TrainState, batch: Batch):
         if aug is not None:
-            batch = augment_batch(batch, state.generator, aug, noise_gen)
+            gen = (fold_in(state.generator, mesh.rank) if distributed
+                   else state.generator)
+            batch = augment_batch(batch, gen, aug, noise_gen)
         optimizer.zero_grad(set_to_none=True)
         if loss_fn is None:  # the sequence loss inside RAFT's loop
-            flows, loss = model(batch["im1"], batch["im2"], gt=batch["flow"],
-                                valid=batch["valid"])
+            flows, loss = net(batch["im1"], batch["im2"], gt=batch["flow"],
+                              valid=batch["valid"])
         else:
-            flows = model(batch["im1"], batch["im2"])
+            flows = net(batch["im1"], batch["im2"])
             loss = loss_fn(flows, batch["flow"], batch["valid"])
-        loss.backward()
+        loss.backward()  # under DDP: the gradients averaged over the ranks
         grads = [p.grad for p in params if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -94,7 +123,12 @@ def make_train_step(model, optimizer, scheduler,
                 batch["flow"], tuple(finest.shape[1:3]), flow_scale=1.0,
                 valid=batch["valid"])
             train_epe = epe(finest * to_px, gt_small, v_small)
-        return state, {"loss": loss.detach(), "train_epe": train_epe,
+            loss = loss.detach()
+            if distributed:  # gloo has no AVG: one SUM, then divide
+                loss, train_epe = all_reduce_sum(
+                    torch.stack([loss.float(), train_epe.float()]),
+                    mesh) / mesh.size
+        return state, {"loss": loss, "train_epe": train_epe,
                        "grad_norm": grad_norm.detach()}
 
     return step
@@ -104,13 +138,17 @@ def make_train_step(model, optimizer, scheduler,
 EPE_MAG_BINS = (10.0, 40.0)
 
 
-def make_eval_step(model) -> Callable[[Batch], Tuple[torch.Tensor, ...]]:
+def make_eval_step(model, mesh: Optional[ProcessMesh] = None
+                   ) -> Callable[[Batch], Tuple[torch.Tensor, ...]]:
     """``eval(batch) -> (sum_epe, sum_outliers, num_valid, bins,
     per_sample)`` on a batch already padded to the model's divisor, as the
     JAX eval step: full-resolution EPE and KITTI Fl outliers (EPE > 3 px and
     > 5% of |GT|); ``bins`` (2, 3) holds the EPE sums and valid counts over
     |GT| in [0, 10), [10, 40), [40, inf) px; ``per_sample`` (B, 8) the same
-    per sample: [epe sum, valid count, 3 bin EPE sums, 3 bin counts]."""
+    per sample: [epe sum, valid count, 3 bin EPE sums, 3 bin counts]. Under
+    a data ``mesh`` the batch is this rank's rows; the sums are summed over
+    the ranks (one collective) and ``per_sample`` gathered in rank order,
+    so every rank returns the global batch's values."""
 
     @torch.no_grad()
     def step(batch: Batch):
@@ -118,20 +156,28 @@ def make_eval_step(model) -> Callable[[Batch], Tuple[torch.Tensor, ...]]:
         full = model.full_res_flow(flows, tuple(batch["im1"].shape[1:3]))
         gt, v = batch["flow"].float(), batch["valid"].float()
         diff = full - gt
-        dist = torch.sqrt((diff * diff).sum(-1) + 1e-16)
+        dist_px = torch.sqrt((diff * diff).sum(-1) + 1e-16)
         outlier = fl_outliers(full, gt)
         mag = torch.sqrt((gt ** 2).sum(-1) + 1e-16)
         lo, hi = EPE_MAG_BINS
         masks = ((mag < lo).float() * v, ((mag >= lo) & (mag < hi)).float() * v,
                  (mag >= hi).float() * v)
-        bins = torch.stack([torch.stack([(dist * m).sum() for m in masks]),
+        bins = torch.stack([torch.stack([(dist_px * m).sum() for m in masks]),
                             torch.stack([m.sum() for m in masks])])
-        axes = tuple(range(1, dist.dim()))
+        axes = tuple(range(1, dist_px.dim()))
         per_sample = torch.cat([
-            (dist * v).sum(axes)[:, None], v.sum(axes)[:, None],
-            torch.stack([(dist * m).sum(axes) for m in masks], 1),
+            (dist_px * v).sum(axes)[:, None], v.sum(axes)[:, None],
+            torch.stack([(dist_px * m).sum(axes) for m in masks], 1),
             torch.stack([m.sum(axes) for m in masks], 1)], 1)
-        return ((dist * v).sum(), (outlier * v).sum(), v.sum(), bins,
-                per_sample)
+        sums = ((dist_px * v).sum(), (outlier * v).sum(), v.sum(), bins)
+        if not _distributed(mesh):
+            return (*sums, per_sample)
+        flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in sums]),
+                              mesh)
+        buf = to_comm(per_sample, mesh)
+        parts = [torch.empty_like(buf) for _ in range(mesh.size)]
+        dist.all_gather(parts, buf, group=mesh.group)
+        return (flat[0], flat[1], flat[2], flat[3:].view(2, 3),
+                torch.cat(parts).to(per_sample.device))
 
     return step

@@ -11,6 +11,9 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
+import subprocess
+import sys
 import zlib
 from pathlib import Path
 
@@ -37,6 +40,7 @@ from pwcnet_tpu_torch.data import pipeline as tpipe
 from pwcnet_tpu_torch.data.synthetic import SyntheticFlow
 from pwcnet_tpu_torch.io import flow_to_rgb, make_color_wheel, png
 from pwcnet_tpu_torch.io import read_kitti_png, write_kitti_png
+from pwcnet_tpu_torch.parallel.launch import free_port
 from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
 from pwcnet_tpu_torch.train.evaluate import predict_flow
 from pwcnet_tpu_torch.train.loop import build_model
@@ -431,3 +435,35 @@ def test_eval_refuses_a_directory_without_port_checkpoints(tmp_path,
     monkeypatch.setenv("PWCNET_PLATFORM", "cpu")
     with pytest.raises(ValueError, match="Orbax"):
         cli.main(["predict", *PREDICT_ARGS, "--ckpt", str(tmp_path)])
+
+
+def test_train_command_runs_data_parallel_ranks(tmp_path):
+    """Two ``train`` processes joined by the parallel.* overrides (JAX's
+    coordinator, num_processes and process_id) under ``--backend gloo``:
+    both print the ranks' mean metrics of the one global batch, and
+    process 0 alone writes metrics.jsonl."""
+    root = Path(__file__).resolve().parents[1]
+    env = {**os.environ, "PWCNET_PLATFORM": "cpu", "PYTHONPATH": str(root),
+           "OMP_NUM_THREADS": "1"}
+    argv = [sys.executable, "-m", "pwcnet_tpu_torch.cli", "train",
+            "--preset", "synthetic-proof", "--max-steps", "1",
+            "--backend", "gloo", "model.dtype=float32",
+            "data.augment.crop_hw=(64,64)", "train.global_batch=2",
+            f"train.log_dir={tmp_path}", "parallel.num_processes=2",
+            f"parallel.coordinator=localhost:{free_port()}"]
+    procs = [subprocess.Popen(argv + [f"parallel.process_id={r}"],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, env=env, cwd=root,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=180)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    finals = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    assert finals[0]["step"] == finals[1]["step"] == 1
+    assert finals[0]["loss"] == finals[1]["loss"]
+    assert np.isfinite(finals[0]["loss"])
+    lines = (tmp_path / "metrics.jsonl").read_text().splitlines()
+    assert len(lines) == 1

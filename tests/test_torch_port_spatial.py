@@ -425,8 +425,8 @@ def test_spatial_forward_rejects_indivisible_height():
 
 
 def test_mesh_and_model_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        make_mesh(MeshConfig(data=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        make_mesh(MeshConfig(data=2, spatial=2), device="cpu")
     with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh(MeshConfig(data=1, spatial=2), backend="gloo",
                   device="cpu")

@@ -417,16 +417,32 @@ def _changed(cfg, change):
 
 
 @pytest.mark.parametrize("change", [
-    dict(parallel=dict(data=2)),
+    # Data parallelism is ported (tests/test_torch_port_ddp.py); with the
+    # spatial axis it is not, and neither is training across spatial shards
+    # (refused before any process group is joined).
+    dict(parallel=dict(data=2, spatial=2)),
     dict(parallel=dict(spatial=2)),
-    # RAFT and its sequence losses are ported (train runs them below).
-    dict(parallel=dict(num_processes=2)),
+    dict(parallel=dict(spatial=2, num_processes=2, process_id=0,
+                       coordinator="localhost:1")),
     dict(model=dict(use_norm=True)),
 ])
 def test_train_raises_for_what_is_not_ported(tmp_path, change):
     cfg = _changed(_tiny_cfg(tmp_path), change)
     with pytest.raises(NotImplementedError, match="ROADMAP A[5-9]"):
         train(cfg, max_steps=3, device="cpu")
+
+
+@pytest.mark.parametrize("change, error, match", [
+    (dict(parallel=dict(data=2)), ValueError, "needs 2 processes"),
+    (dict(parallel=dict(num_processes=2)), ValueError, "coordinator"),
+    (dict(parallel=dict(model=2)), NotImplementedError, "model axis"),
+])
+def test_train_refuses_a_mesh_it_cannot_form(tmp_path, change, error, match):
+    """One process cannot be a data mesh of two; more processes need the
+    coordinator; the model axis is reserved."""
+    cfg = _changed(_tiny_cfg(tmp_path), change)
+    with pytest.raises(error, match=match):
+        train(cfg, max_steps=1, device="cpu")
 
 
 @pytest.mark.parametrize("case", ["device_gen_false", "flyingchairs",

@@ -1,7 +1,16 @@
-"""The flax -> port weight bridge and the port's own init."""
+"""The flax -> port weight bridge and the port's own init, and the repo's
+trained PWC-Net checkpoint (``runs/synthetic-proof/
+params_step125000_bf16.npz``, bf16 stored as ``uint16`` views) through it:
+its flows per level against the JAX model's with the same weights, within
+``1e-4 * max|ref|`` (the rule of ``tests/test_torch_port_model.py``), on a
+smooth ``SyntheticFlow`` pair (an integer-shifted pair converges onto the
+integer and flips the warp's coverage threshold), and its val EPE."""
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -9,7 +18,17 @@ import torch
 from pwcnet_tpu.models import PWCNet as JaxPWCNet
 from pwcnet_tpu_torch import PWCNet
 from pwcnet_tpu_torch.compat.flax_weights import (_flatten, load_flax_params,
-                                                  torch_key)
+                                                  read_flax_npz, torch_key)
+from pwcnet_tpu_torch.data.synthetic import SyntheticFlow
+from pwcnet_tpu_torch.train.evaluate import evaluate_dataset
+
+NPZ = (Path(__file__).resolve().parents[1] / "runs" / "synthetic-proof"
+       / "params_step125000_bf16.npz")
+TRAINED_HW = (384, 448)
+TOL = 1e-4  # f32 flows, per level, relative to max|ref|
+# The JAX run of this checkpoint read 0.0336 px on 256 val pairs
+# (runs/synthetic-proof/final_eval.json); at init the model reads ~6.9.
+TRAINED_EPE_MAX = 0.05
 
 
 def _param_tree(num_levels=6):
@@ -121,3 +140,91 @@ def test_init_follows_lecun_normal():
                model.estimators["l6"].stack.blocks)
     again = PWCNet(device="cpu", generator=torch.Generator().manual_seed(3))
     assert torch.equal(again.context.flow.weight, model.context.flow.weight)
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def _jax_npz_params():
+    """The trained npz as the JAX model's f32 params, read with
+    ``ml_dtypes``."""
+    tree = {}
+    with np.load(NPZ) as z:
+        for key in z.files:
+            _nested_set(tree, key.split("/", 1)[1],
+                        z[key].view(ml_dtypes.bfloat16).astype(np.float32))
+    return {"params": tree}
+
+
+def test_read_flax_npz_reads_the_uint16_checkpoint_as_bf16():
+    tree = read_flax_npz(str(NPZ))
+    flat = _flatten(tree)
+    with np.load(NPZ) as z:
+        assert len(flat) == len(z.files) == 98
+        for key in z.files:
+            got = flat[key.split("/", 1)[1]]
+            assert got.dtype == torch.bfloat16, key
+            np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                          z[key].view(np.int16))
+
+
+@pytest.mark.parametrize("stored", ["<u2", "<i2", "|V2"])
+def test_read_flax_npz_reads_every_2_byte_storage_as_bf16(tmp_path, stored):
+    bits = np.array([0x3F80, 0xC000, 0x7F80, 0x0001], np.uint16)
+    path = tmp_path / "p.npz"
+    np.savez(path, **{"params/context/Conv_0/bias": bits.view(stored),
+                      "params/context/Conv_0/half": bits.astype(np.float16)})
+    tree = read_flax_npz(str(path))["context"]["Conv_0"]
+    assert tree["bias"].dtype == torch.bfloat16
+    assert tree["bias"][:3].tolist() == [1.0, -2.0, float("inf")]
+    np.testing.assert_array_equal(tree["bias"].view(torch.int16).numpy(),
+                                  bits.view(np.int16))
+    assert tree["half"].dtype == torch.float16  # a real float16 array
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.int32])
+def test_integer_parameters_raise(dtype):
+    params = _param_tree()
+    k = params["context"]["Conv_0"]["kernel"]
+    params["context"]["Conv_0"]["kernel"] = np.ones(k.shape, dtype)
+    with pytest.raises(TypeError, match="context/Conv_0/kernel.*dtype"):
+        load_flax_params(PWCNet(device="cpu"), params)
+
+
+@pytest.fixture(scope="module")
+def trained():
+    """The flows of the port's and of JAX's f32 PWC-Net with the trained
+    weights (bf16, upcast) on synthetic val pair 0."""
+    s = SyntheticFlow(split="val", hw=TRAINED_HW)[0]
+    im1, im2 = s["im1"][None], s["im2"][None]
+    jm = JaxPWCNet(corr_backend="lax")
+    want = jax.jit(lambda p, a, b: jm.apply(p, a, b, train=False))(
+        _jax_npz_params(), im1, im2)
+    model = PWCNet(device="cpu")
+    load_flax_params(model, read_flax_npz(str(NPZ)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(im1.copy()), torch.from_numpy(
+            im2.copy()))
+    return [g.numpy() for g in got], [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("level", range(5))
+def test_trained_checkpoint_matches_jax_per_level(trained, level):
+    got, want = trained
+    assert len(got) == len(want) == 5
+    assert got[level].shape == want[level].shape
+    assert _rel_err(got[level], want[level]) <= TOL  # measured <= 6.2e-7
+    assert np.abs(want[level]).max() > 0.1  # trained flows carry signal
+
+
+def test_trained_checkpoint_val_epe():
+    """evaluate_dataset of the trained model on 4 synthetic-proof val pairs
+    at 384x448 (f32 on the CPU): finite and under 0.05 px."""
+    model = PWCNet(device="cpu")
+    load_flax_params(model, read_flax_npz(str(NPZ)))
+    ev = evaluate_dataset(model, SyntheticFlow(split="val", hw=TRAINED_HW),
+                          batch=4, limit=4)
+    assert ev["num_samples"] == 4
+    assert np.isfinite(ev["epe"]) and ev["epe"] < TRAINED_EPE_MAX, ev
