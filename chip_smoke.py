@@ -30,7 +30,14 @@ on synthetic-proof, its f32 forward against the CPU's, the trainer with the
 sequence loss (24 of each of K1-K3 per step), and the command line's RAFT
 ``train``, ``predict`` and ``match``. Then the repo's trained PWC-Net
 checkpoint (``pwc_trained``: bf16 launches, val EPE on synthetic-proof's 256
-val pairs beside the TPU run's, f32 card vs CPU per level) and data-parallel
+val pairs beside the TPU run's, f32 card vs CPU per level); the PWC-Net
+with GroupNorm (``norm_forward``: bf16 448x1024, K1 5 and K4 0 launches, f32
+card vs CPU per level; ``norm_train``: K1-K3 5/5/5 a step through
+``train()``, the f32 step against the CPU); the parity harness on the
+trained weights (``parity_trained``: the CLI's ``parity --sweep --ckpt DIR``
+on the card against ``parity_report`` on the CPU) and the reference
+``.pth`` import (``pth_import``: the same weights under the reference's key
+names give bit-equal flows and the same report); and data-parallel
 training on two ``gloo`` ranks sharing the card (``ddp_train``: PWC-Net bf16
 with a checkpoint and a resume, f32 two ranks against one process, RAFT,
 nccl's refusal of two ranks on one card). Each phase prints one JSON line;
@@ -2107,10 +2114,12 @@ def profile_dir_phase(roots: dict) -> None:
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
-def run_cli(*args):
+def run_cli(*args, env=None, whole=False):
     """``python -m pwcnet_tpu_torch.cli *args`` in a subprocess on the card,
-    from the repo root: (its last output line as JSON, seconds)."""
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    from the repo root: (its last output line as JSON, or with ``whole``
+    its whole output, seconds). ``env``: the environment (default: this
+    process's)."""
+    env = dict(os.environ if env is None else env, PYTHONPATH=ROOT)
     env.pop("PWCNET_PLATFORM", None)
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "pwcnet_tpu_torch.cli",
@@ -2120,8 +2129,9 @@ def run_cli(*args):
         raise AssertionError(f"cli {args[0]} failed ({proc.returncode}):"
                              f"\n{proc.stdout[-2000:]}\n"
                              f"{proc.stderr[-4000:]}")
-    return (json.loads(proc.stdout.strip().splitlines()[-1]),
-            time.perf_counter() - t0)
+    lines = proc.stdout.strip().splitlines()
+    out = "\n".join(lines[lines.index("{"):]) if whole else lines[-1]
+    return json.loads(out), time.perf_counter() - t0
 
 
 def cli_phase(out_dir: str, roots: dict) -> None:
@@ -2688,6 +2698,313 @@ def pwc_trained(dev, smi: str) -> None:
                              f"disagree: {per_level}")
 
 
+# -- GroupNorm (use_norm), the parity harness and the .pth import ----------
+NORM_FWD_HW = (448, 1024)      # norm_forward, bf16, batch 1
+NORM_F32_HW = (384, 448)       # the f32 forward, card vs CPU
+NORM_TRAIN_STEPS = 3           # norm_train through train()
+NORM_STEP_BATCH = (2, 128, 192)  # the f32 step, card vs CPU
+# use_norm turns the fused stem off (as in JAX): K1 only in a forward, K1-K3
+# in a train step, no K4 or K5.
+NORM_FWD_LAUNCHES = {"corr_fwd": 5}
+NORM_TRAIN_LAUNCHES = {"corr_fwd": 5, "corr_bwd_f1": 5, "corr_bwd_f2": 5}
+PARITY_DIR = os.path.join(ROOT, "tests", "fixtures", "parity")
+PARITY_RTOL = 1e-4  # every number of the card's f32 report vs the CPU's
+
+
+def norm_model(dtype, device, state=None):
+    """The full-width PWC-Net with GroupNorm (6 levels, pallas), weights
+    seeded, or ``state``."""
+    from pwcnet_tpu_torch import PWCNet
+    model = PWCNet(use_norm=True, dtype=dtype, device=device,
+                   generator=torch.Generator().manual_seed(0))
+    if state is not None:
+        model.load_state_dict(state)
+    return model.eval()
+
+
+def norm_forward(dev, base, timer, smi) -> dict:
+    """norm_forward: the use_norm PWC-Net in bf16 at 448x1024, batch 1: K1
+    5 and K4 0 launches a forward with the plain correlation refused, wall,
+    device span and busy time; its f32 forward on the card against the
+    CPU's per level (pyramid, correlation, flows)."""
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
+    from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
+    h, w = NORM_FWD_HW
+    pair = [torch.from_numpy(np.ascontiguousarray(a))[None].to(dev) for a in
+            (base[:h, :w], np.roll(base, (2, 5), (0, 1))[:h, :w])]
+    model = norm_model(torch.bfloat16, dev)
+    with torch.inference_mode():
+        model(*pair)  # warm-up
+        torch.cuda.synchronize()
+        with no_plain_correlation():
+            reset_launches(ck, sk, wk)
+            flows = model(*pair)
+            torch.cuda.synchronize()
+            launches = {k: v for m in (ck, sk, wk)
+                        for k, v in m.LAUNCHES.items() if v}
+        finite = all(bool(torch.isfinite(f).all()) for f in flows)
+        fwd_wall = wall_ms(lambda: model(*pair))
+        fwd_dev = timer(lambda: model(*pair), reps=20, inner=1)
+        busy, n_launch, top = profile_kernels(lambda: model(*pair))
+    h, w = NORM_F32_HW
+    a, b = (torch.from_numpy(np.ascontiguousarray(x))[None] for x in
+            (base[:h, :w], np.roll(base, (2, 5), (0, 1))[:h, :w]))
+    cpu_model = norm_model(torch.float32, "cpu")
+    card_model = norm_model(torch.float32, dev, cpu_model.state_dict())
+    inter_cpu, inter_card = {}, {}
+    with torch.inference_mode():
+        f_cpu = cpu_model(a, b, intermediates=inter_cpu)
+        f_card = card_model(a.to(dev), b.to(dev), intermediates=inter_card)
+    per_level = {key: [rel_err(g.cpu(), w)[1] for g, w in zip(got, want)]
+                 for key, got, want in (
+                     ("pyramid", inter_card["pyramid"], inter_cpu["pyramid"]),
+                     ("corr", inter_card["corr"], inter_cpu["corr"]),
+                     ("flows", f_card, f_cpu))}
+    worst = max(max(v) for v in per_level.values())
+    out = {"phase": "norm_forward", "dtype": "bfloat16",
+           "hw": list(NORM_FWD_HW), "flow_shapes": [list(f.shape)
+                                                    for f in flows],
+           "finite": finite, "launches_per_forward": launches,
+           "ms_per_frame_batch1_wall": fwd_wall,
+           "ms_per_frame_batch1_device": fwd_dev,
+           "device_busy_ms_per_frame": busy,
+           "idle_share_of_wall": 1 - busy / fwd_wall,
+           "kernel_launches_per_frame": n_launch, "top": top,
+           "f32_hw": list(NORM_F32_HW), "f32_rel_err_per_level": per_level,
+           "tol": FWD_TOL, "nvidia_smi": smi}
+    emit(out)
+    if not finite or launches != NORM_FWD_LAUNCHES:
+        raise AssertionError(f"use_norm forward: finite={finite}, expected "
+                             f"{NORM_FWD_LAUNCHES} per forward, got "
+                             f"{launches}")
+    if not worst <= FWD_TOL:
+        raise AssertionError(f"use_norm card and CPU forwards disagree: "
+                             f"{per_level}")
+    return out
+
+
+def norm_train(dev, timer, smi) -> dict:
+    """norm_train: synthetic-proof with use_norm, bf16, batch 8 at 384x448:
+    train() for NORM_TRAIN_STEPS steps with the plain correlation refused
+    (K1, K2, K3 5/5/5 a step, K4 and K5 0), then the step on a fixed batch
+    (wall, device span, busy time, pairs/s); one f32 step's metrics and
+    gradients, card against CPU, under the f32 floor rule."""
+    import dataclasses
+    import shutil
+    from pwcnet_tpu_torch.data.synthetic import make_device_batcher
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import stem_kernel as sk
+    from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
+    from pwcnet_tpu_torch.train.loop import build_model, train
+    from pwcnet_tpu_torch.train.schedule import optimizer_from_config
+    from pwcnet_tpu_torch.train.state import TrainState
+    from pwcnet_tpu_torch.train.step import make_train_step
+    cfg = train_config("norm", summary_interval=1)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, use_norm=True))
+    shutil.rmtree(cfg.train.log_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    with no_plain_correlation():
+        reset_launches(ck, sk, wk)
+        final = train(cfg, max_steps=NORM_TRAIN_STEPS)
+        torch.cuda.synchronize()
+    per_step = {k: v / NORM_TRAIN_STEPS for m in (ck, sk, wk)
+                for k, v in m.LAUNCHES.items() if v}
+    shutil.rmtree(cfg.train.log_dir, ignore_errors=True)
+    finite = _finite(final)
+
+    model = build_model(cfg)
+    opt, sched = optimizer_from_config(model.parameters(), cfg.train)
+    state = TrainState.create(model, opt, sched, seed=1)
+    step_fn = make_train_step(model, opt, sched)
+    batch = make_device_batcher(cfg.train.global_batch,
+                                cfg.data.augment.crop_hw, seed=5,
+                                device=dev)(0)
+
+    def one_step():
+        step_fn(state, batch)
+
+    step_wall = wall_ms(one_step, reps=10)
+    step_dev = timer(one_step, reps=10, inner=1)
+    busy, n_launch, top = profile_kernels(one_step)
+
+    cfg32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32"))
+    small = make_device_batcher(NORM_STEP_BATCH[0], NORM_STEP_BATCH[1:],
+                                seed=6, device="cpu")(0)
+    ref_state = build_model(cfg32, "cpu").state_dict()
+
+    def f32_step(where, im_noise=0.0, seed=0):
+        m = build_model(cfg32, where)
+        m.load_state_dict(ref_state)
+        return one_step_grads(m, cfg32.train, small, im_noise=im_noise,
+                              seed=seed)
+
+    m_cpu, g_cpu = f32_step("cpu")
+    m_card, g_card = f32_step(dev)
+    floor = max(max(grad_rel(f32_step("cpu", 1e-6, s)[1], g_cpu).values())
+                for s in range(3))
+    tol = max(TRAIN_TOL, FLOOR_FACTOR * floor)
+    metric_rel = {k: abs(m_card[k] - m_cpu[k]) / abs(m_cpu[k])
+                  for k in m_cpu}
+    vs_cpu = grad_rel(g_card, g_cpu)
+    out = {"phase": "norm_train", "config": "synthetic-proof, use_norm, "
+           f"bf16, batch {cfg.train.global_batch}, "
+           f"{cfg.data.augment.crop_hw}", "final": final, "finite": finite,
+           "launches_per_step": per_step,
+           "ms_per_step_wall": step_wall, "ms_per_step_device": step_dev,
+           "pairs_per_s_wall": cfg.train.global_batch * 1e3 / step_wall,
+           "device_busy_ms_per_step": busy,
+           "idle_share_of_wall": 1 - busy / step_wall,
+           "kernel_launches_per_step": n_launch, "top": top,
+           "f32_batch": list(NORM_STEP_BATCH), "metric_rel_err": metric_rel,
+           "metric_tol": TRAIN_TOL,
+           "grad_rel_err_vs_cpu_max": max(vs_cpu.values()),
+           "grad_rel_err_vs_cpu_worst3": sorted(
+               vs_cpu.items(), key=lambda t: -t[1])[:3],
+           "cpu_floor_1e-6": floor, "grad_tol": tol, "nvidia_smi": smi}
+    emit(out)
+    if not finite or per_step != NORM_TRAIN_LAUNCHES:
+        raise AssertionError(f"use_norm train: finite={finite}, expected "
+                             f"{NORM_TRAIN_LAUNCHES} per step, got "
+                             f"{per_step}")
+    if not (max(metric_rel.values()) <= TRAIN_TOL
+            and max(vs_cpu.values()) <= tol):
+        raise AssertionError("use_norm f32 train step: card and CPU "
+                             "disagree beyond the tolerances")
+    return out
+
+
+def _reports_close(got, want, rtol: float) -> bool:
+    """Same keys and entries; every float within ``rtol`` relative."""
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(
+            _reports_close(got[k], want[k], rtol) for k in want)
+    if isinstance(want, list):
+        return len(got) == len(want) and all(
+            _reports_close(g, w, rtol) for g, w in zip(got, want))
+    if isinstance(want, float):
+        return abs(got - want) <= rtol * abs(want)
+    return got == want
+
+
+def run_parity_cli(*args):
+    """``python -m pwcnet_tpu_torch.cli parity`` on the repo's parity pair,
+    f32, in a subprocess on the card (TF32 off, as in this script's f32
+    checks): its report and seconds."""
+    env = dict(os.environ, NVIDIA_TF32_OVERRIDE="0")
+    report, secs = run_cli(
+        "parity", "--im1", os.path.join(PARITY_DIR, "im1.png"), "--im2",
+        os.path.join(PARITY_DIR, "im2.png"), "--gt",
+        os.path.join(PARITY_DIR, "gt.flo"), "--sweep", *args,
+        "model.dtype=float32", env=env, whole=True)
+    return report, secs
+
+
+def parity_trained(out_dir: str, smi: str) -> str:
+    """parity_trained: the repo's trained PWC-Net written into a port
+    checkpoint directory; the CLI's ``parity --sweep --ckpt DIR`` on the
+    repo's parity pair on the card (f32) against ``parity_report`` on the
+    CPU: every number within PARITY_RTOL relative, the same ``best``.
+    Returns the directory."""
+    import dataclasses
+    from pwcnet_tpu_torch.config import Config
+    from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
+    from pwcnet_tpu_torch.train.parity import parity_report
+    from pwcnet_tpu_torch.train.schedule import optimizer_from_config
+    from pwcnet_tpu_torch.train.state import TrainState
+    ckpt = os.path.join(RUN_DIR, "parity_ckpt")
+    model = trained_pwcnet(torch.float32, "cpu")
+    opt, sched = optimizer_from_config(model.parameters(), Config().train)
+    CheckpointManager(ckpt).save(TrainState.create(model, opt, sched,
+                                                    seed=0))
+    card, secs = run_parity_cli("--ckpt", ckpt)
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, dtype="float32"))
+    cpu = parity_report(cfg, os.path.join(PARITY_DIR, "im1.png"),
+                        os.path.join(PARITY_DIR, "im2.png"),
+                        gt_path=os.path.join(PARITY_DIR, "gt.flo"),
+                        ckpt=ckpt, sweep=True, device="cpu")
+    with open(os.path.join(out_dir, "parity_trained.json"), "w") as f:
+        json.dump({"card": card, "cpu": cpu}, f, indent=1)
+    close = _reports_close(card, cpu, PARITY_RTOL)
+    emit({"phase": "parity_trained",
+          "checkpoint": os.path.relpath(TRAINED_NPZ, ROOT),
+          "pair": os.path.relpath(PARITY_DIR, ROOT), "report": card,
+          "cpu_best": cpu["best"], "rtol": PARITY_RTOL,
+          "card_matches_cpu": close, "cli_seconds": secs,
+          "nvidia_smi": smi})
+    if not close or card["best"] != cpu["best"]:
+        raise AssertionError("the card's parity report disagrees with the "
+                             "CPU's")
+    return ckpt
+
+
+def reference_state_dict(model) -> dict:
+    """The port PWC-Net's convs under the reference's key names (its
+    ``feature_pyramid_extractor.convs.<level>.<i>.0``, coarse-first
+    ``flow_estimators.<i>.convs.<j>.0`` and ``.flow_conv``,
+    ``context_networks.convs.<j>.0`` and ``.flow_conv``), in the
+    reference's registration order."""
+    p = model.pyramid
+    convs = [p.stem.conv1, p.stem.conv2, p.stem.conv3, p.stem.conv4] + [
+        b.conv for b in p.blocks]
+    named = [(f"feature_pyramid_extractor.convs.{i // 2}.{i % 2}.0", c)
+             for i, c in enumerate(convs)]
+    for i, lv in enumerate(sorted((int(k[1:]) for k in model.estimators),
+                                  reverse=True)):
+        est = model.estimators[f"l{lv}"]
+        named += [(f"flow_estimators.{i}.convs.{j}.0", b.conv)
+                  for j, b in enumerate(est.stack.blocks)]
+        named.append((f"flow_estimators.{i}.flow_conv", est.flow))
+    named += [(f"context_networks.convs.{j}.0", b.conv)
+              for j, b in enumerate(model.context.blocks)]
+    named.append(("context_networks.flow_conv", model.context.flow))
+    return {f"{n}.{leaf}": getattr(c, leaf).detach().clone()
+            for n, c in named for leaf in ("weight", "bias")}
+
+
+def pth_import(ckpt: str, dev, smi: str) -> None:
+    """pth_import: the trained weights under the reference's module layout,
+    saved as a .pth and imported (``compat.import_torch_checkpoint``): on
+    the card the .pth model's f32 flows on the parity pair equal the
+    checkpoint directory's bit for bit, and the CLI's ``parity --ckpt
+    <file>.pth`` reports what ``parity --ckpt DIR`` does."""
+    from pwcnet_tpu_torch import PWCNet
+    from pwcnet_tpu_torch.compat import import_torch_checkpoint
+    from pwcnet_tpu_torch.data.base import read_image
+    from pwcnet_tpu_torch.train.checkpoint import load_model_weights
+    from pwcnet_tpu_torch.train.evaluate import pad_to_divisible
+    pth = os.path.join(RUN_DIR, "trained_reference.pth")
+    torch.save(reference_state_dict(trained_pwcnet(torch.float32, "cpu")),
+               pth)
+    from_pth = PWCNet(device=dev)
+    filled = import_torch_checkpoint(pth, from_pth)
+    from_dir = PWCNet(device=dev)
+    load_model_weights(from_dir, ckpt)
+    pair = [torch.tensor(pad_to_divisible(read_image(os.path.join(
+        PARITY_DIR, n))[None], 64)[0], device=dev)
+        for n in ("im1.png", "im2.png")]
+    with torch.inference_mode():
+        fa = from_pth.eval()(*pair)
+        fb = from_dir.eval()(*pair)
+    flows_equal = all(torch.equal(x, y) for x, y in zip(fa, fb))
+    params_equal = all(torch.equal(v, from_dir.state_dict()[k])
+                       for k, v in from_pth.state_dict().items())
+    by_pth, secs = run_parity_cli("--ckpt", pth)
+    by_dir, _ = run_parity_cli("--ckpt", ckpt)
+    emit({"phase": "pth_import", "keys": len(filled),
+          "params_equal": params_equal, "flows_bit_equal": flows_equal,
+          "cli_report_equal": by_pth == by_dir, "cli_seconds": secs,
+          "best": by_pth["best"], "nvidia_smi": smi})
+    if not (params_equal and flows_equal and by_pth == by_dir
+            and len(filled) == len(from_pth.state_dict())):
+        raise AssertionError("the .pth import of the trained weights does "
+                             "not give the checkpoint directory's model")
+
+
 DDP_WORLD = 2      # gloo ranks sharing the one card
 DDP_STEPS = 4      # (a): a checkpoint at 2, resumed to 4 in a second launch
 DDP_F32_STEPS = 2  # (b): two ranks against one process
@@ -3132,6 +3449,13 @@ def main() -> int:
         # -- 5e. The trained PWC-Net checkpoint; data-parallel training on
         # two gloo ranks sharing the card ------------------------------------
         pwc_trained(dev, smi)
+
+        # -- 5f. GroupNorm (use_norm): the forward and the trainer through
+        # K1-K3; the parity harness and the .pth import on the trained
+        # weights -----------------------------------------------------------
+        norm_fwd = norm_forward(dev, base, timer, smi)
+        norm_tr = norm_train(dev, timer, smi)
+        pth_import(parity_trained(out_dir, smi), dev, smi)
         ddp = ddp_train(out_dir, dev, smi, f32_grad_tol)
     finally:
         shutil.rmtree(tree_dir, ignore_errors=True)
@@ -3188,6 +3512,14 @@ def main() -> int:
         for label, shapes in (("train", RAFT_TRAIN), ("448x1024", RAFT_INFER)):
             for key in ("ms", "bound_ms", "plain_ms"):
                 k["raft"][f"{key}_{label}"] = sum(rs[sh][key] for sh in shapes)
+    # K1-K3 on the use_norm path: launches per bf16 448x1024 forward and
+    # per train step (8 x 384x448).
+    for k in kernels[:3]:
+        k["use_norm"] = {
+            "launches_per_forward": norm_fwd["launches_per_forward"].get(
+                k["name"], 0),
+            "launches_per_train_step": norm_tr["launches_per_step"][
+                k["name"]]}
     # K1-K5 under data parallelism: launches per step on each rank.
     for k in kernels[:5]:
         k["ddp_launches_per_step_per_rank"] = ddp["launches_per_step"][

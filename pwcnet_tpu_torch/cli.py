@@ -4,6 +4,7 @@
     python -m pwcnet_tpu_torch.cli eval    --preset sintel-eval [--ckpt DIR] [--split val] data.root=DIR [...]
     python -m pwcnet_tpu_torch.cli predict --im1 a.png --im2 b.png [--ckpt DIR] [--out flow.flo] [--vis flow.png]
     python -m pwcnet_tpu_torch.cli match   --im1 a.png --im2 b.png [--ckpt DIR] [--out matches.txt] [--grid-step 8] [--fb-threshold 1.5]
+    python -m pwcnet_tpu_torch.cli parity  --im1 a.png --im2 b.png [--gt gt.flo] [--ref-flow ref.flo] [--ckpt DIR|ref.pth] [--sweep]
     python -m pwcnet_tpu_torch.cli config  --preset synthetic-proof [...]
 
 The presets are the JAX package's (``config.PRESETS``): the file datasets
@@ -14,13 +15,15 @@ selects RAFT. It runs on the GPU;
 versions of the kernels). With no GPU and no such setting it raises.
 ``--ckpt`` is a directory of the port's ``CheckpointManager``
 (``step_<n>.pt``); an Orbax directory of the JAX package is refused.
+``parity`` also takes a reference PWC-Net ``.pth``/``.pt`` state dict
+(``compat/torch_import.py``) and prints its report as JSON
+(``train/parity.py``).
 ``train`` runs data-parallel on N processes, one per card: start each with
 ``parallel.num_processes=N parallel.process_id=<rank>
 parallel.coordinator=<host:port of rank 0>``, or all of them with
 ``torchrun --nproc_per_node=N -m pwcnet_tpu_torch.cli train ...``.
 ``--backend`` picks the collectives (default: ``nccl`` on the GPU,
 ``gloo`` on the CPU; ``gloo`` lets several ranks share one card).
-``parity`` is not ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -59,20 +62,11 @@ def _load_cfg(args):
 def _model(cfg, ckpt: Optional[str]):
     """The config's model on the selected device, with the weights of the
     latest checkpoint under ``ckpt`` when given."""
-    from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
+    from pwcnet_tpu_torch.train.checkpoint import load_model_weights
     from pwcnet_tpu_torch.train.loop import build_model
     model = build_model(cfg, _device())
     if ckpt:
-        if not os.path.isdir(ckpt):
-            raise FileNotFoundError(f"checkpoint directory not found: {ckpt}")
-        mgr = CheckpointManager(ckpt)
-        if mgr.latest_step is None:
-            raise ValueError(
-                f"{ckpt} holds no step_<n>.pt of the port's "
-                "CheckpointManager; an Orbax checkpoint of the JAX package "
-                "needs JAX (convert its params with pwcnet_tpu_torch.compat."
-                "load_flax_params)")
-        model.load_state_dict(mgr.load()["model"])
+        load_model_weights(model, ckpt)
     return model.eval()
 
 
@@ -137,9 +131,13 @@ def cmd_match(args) -> int:
     return 0
 
 
-def cmd_not_ported(args) -> int:
-    raise NotImplementedError(f"the {args.cmd!r} command (the parity "
-                              "harness) is not ported yet (ROADMAP A9)")
+def cmd_parity(args) -> int:
+    from pwcnet_tpu_torch.train.parity import parity_report
+    out = parity_report(_load_cfg(args), args.im1, args.im2,
+                        gt_path=args.gt, ref_flow_path=args.ref_flow,
+                        ckpt=args.ckpt, sweep=args.sweep, device=_device())
+    print(json.dumps(out, indent=2))
+    return 0
 
 
 def cmd_config(args) -> int:
@@ -197,13 +195,22 @@ def main(argv=None) -> int:
     p.add_argument("--fb-threshold", type=float, default=1.5)
     p.set_defaults(fn=cmd_match)
 
-    p = sub.add_parser("parity", help="reference-parity harness (not "
-                       "ported)")
+    p = sub.add_parser(
+        "parity", help="parity harness: EPE of one pair against a ground "
+        "truth and/or a reference implementation's .flo, per level, and "
+        "over the resize_mode x input_center conventions with --sweep")
     common(p)
-    p.add_argument("--ckpt", default=None)
-    p.add_argument("--im1", default=None)
-    p.add_argument("--im2", default=None)
-    p.set_defaults(fn=cmd_not_ported)
+    p.add_argument("--ckpt", default=None,
+                   help="a checkpoint directory of the port, or a reference "
+                        "PWC-Net .pth/.pt state dict")
+    p.add_argument("--im1", required=True)
+    p.add_argument("--im2", required=True)
+    p.add_argument("--gt", default=None, help="ground-truth .flo")
+    p.add_argument("--ref-flow", default=None,
+                   help="reference implementation's predicted .flo")
+    p.add_argument("--sweep", action="store_true",
+                   help="report all resize_mode x input_center combinations")
+    p.set_defaults(fn=cmd_parity)
 
     p = sub.add_parser("config", help="print the resolved config")
     common(p)

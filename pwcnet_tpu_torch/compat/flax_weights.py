@@ -4,10 +4,12 @@
 ``jax.device_get(variables)["params"]`` gives for ``pwcnet_tpu``'s
 ``PWCNet`` or ``RAFT`` (numpy arrays, or torch tensors as
 ``read_flax_npz`` gives them). Kernels are HWIO there and OIHW here, square
-or not. A PWC-Net tree in either layout of the pyramid's first two levels
-loads: the fused one (``StemConvs_0``, the default) and the plain one
-(``ConvBlock_0..3``, e.g. from a model with ``min_level=1``);
-``remap_stem_params`` converts between them. A missing key, an unused key
+or not; a GroupNorm's ``scale`` and ``bias`` fill its block's
+``norm.weight`` and ``norm.bias``. A PWC-Net tree in either layout of the
+pyramid's first two levels loads: the fused one (``StemConvs_0``, the
+default) and the plain one (``ConvBlock_0..3``, e.g. from a model with
+``min_level=1`` or ``use_norm``); ``remap_stem_params`` converts between
+them. A missing key, an unused key
 or a wrong shape raises.
 
 ``read_flax_npz`` reads a checkpoint flattened to an ``.npz`` of
@@ -33,8 +35,12 @@ _RULES: Tuple[Tuple[str, str], ...] = (
      r"pyramid.stem.\1/\2"),
     (r"^FeaturePyramidExtractor_0/ConvBlock_(\d+)/Conv_0/(kernel|bias)$",
      r"pyramid.blocks.\1.conv/\2"),
+    (r"^FeaturePyramidExtractor_0/ConvBlock_(\d+)/GroupNorm_0/"
+     r"(scale|bias)$", r"pyramid.blocks.\1.norm/\2"),
     (r"^estimator_l(\d+)/ConvStack_0/ConvBlock_(\d+)/Conv_0/(kernel|bias)$",
      r"estimators.l\1.stack.blocks.\2.conv/\3"),
+    (r"^estimator_l(\d+)/ConvStack_0/ConvBlock_(\d+)/GroupNorm_0/"
+     r"(scale|bias)$", r"estimators.l\1.stack.blocks.\2.norm/\3"),
     (r"^estimator_l(\d+)/Conv_0/(kernel|bias)$", r"estimators.l\1.flow/\2"),
     (r"^context/ConvBlock_(\d+)/Conv_0/(kernel|bias)$",
      r"context.blocks.\1.conv/\2"),
@@ -130,12 +136,19 @@ def read_flax_npz(path: str) -> dict:
     return tree
 
 
+# Flax leaf name -> the port's parameter name.
+_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
 def torch_key(flax_path: str) -> str:
-    """The port's state_dict key for a flax parameter path."""
+    """The port's state_dict key for a flax parameter path: a conv's
+    ``kernel`` and a GroupNorm's ``scale`` become ``weight``, ``bias``
+    stays ``bias``. A path no rule takes, any other leaf among them,
+    raises ``KeyError``."""
     for pat, rep in _RULES:
         if re.match(pat, flax_path):
             module, leaf = re.sub(pat, rep, flax_path).split("/")
-            return f"{module}.{'weight' if leaf == 'kernel' else 'bias'}"
+            return f"{module}.{_LEAVES[leaf]}"
     raise KeyError(f"no port parameter for flax parameter {flax_path!r}")
 
 

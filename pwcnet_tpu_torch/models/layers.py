@@ -4,7 +4,9 @@
 Activations inside the modules are NCHW tensors (held channels-last by the
 model); parameters are f32 and cast to the activations' dtype at each conv,
 as flax ``nn.Conv(dtype=..., param_dtype=float32)`` does. Convs use XLA
-SAME padding (``conv_same``) and LeakyReLU slope 0.1.
+SAME padding (``conv_same``) and LeakyReLU slope 0.1. ``ConvBlock(
+use_norm=True)`` puts flax's ``nn.GroupNorm`` between the conv and the
+LeakyReLU (``GroupNorm``).
 
 Every ``forward`` takes an optional ``mesh``
 (``pwcnet_tpu_torch.parallel.mesh.SpatialMesh``): with one, the input is
@@ -21,7 +23,11 @@ from torch import nn
 
 from pwcnet_tpu_torch.ops.conv import conv_same, leaky_relu  # noqa: F401
 from pwcnet_tpu_torch.ops.kernels.stem_kernel import stem, stem_ref
-from pwcnet_tpu_torch.parallel.spatial_ops import conv_rows, stem_rows
+from pwcnet_tpu_torch.parallel.spatial_ops import (all_reduce_sum,
+                                                   conv_rows, stem_rows)
+
+# flax ``nn.GroupNorm``'s default epsilon (torch's is 1e-5).
+NORM_EPS = 1e-6
 
 
 class Conv(nn.Module):
@@ -50,25 +56,68 @@ class Conv3x3(Conv):
         super().__init__(cin, cout, (3, 3), stride, dilation)
 
 
+def norm_groups(features: int) -> int:
+    """The JAX ConvBlock's group count: the first of 8, 4, 2, 1 that
+    divides ``features``."""
+    return next(g for g in (8, 4, 2, 1) if features % g == 0)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups=norm_groups(C))`` with its defaults,
+    as the JAX ConvBlock runs it: statistics over (H, W, the group's
+    channels) per image, in f32, the variance as E[x^2] - E[x]^2 clipped
+    at 0, ``eps`` 1e-6, then ``* weight + bias`` (flax ``scale``, ``bias``;
+    f32, shape (C,)), cast back to the input's dtype.
+
+    Under a ``mesh`` the input is this rank's rows, and the sums are taken
+    over the whole image (an all-reduce over the mesh), as GSPMD does for
+    the JAX model under its mesh.
+    """
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.groups = norm_groups(features)
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
+        n, c, h, w = x.shape
+        per = c // self.groups
+        xf = x.float()
+        sums = torch.stack([xf.sum((2, 3)), (xf * xf).sum((2, 3))])
+        count = per * h * w
+        if mesh is not None:
+            sums = all_reduce_sum(sums, mesh)
+            count *= mesh.size
+        sums = sums.view(2, n, self.groups, per).sum(-1) / count
+        mean, var = sums[0], (sums[1] - sums[0] * sums[0]).clamp_min(0.0)
+        mean = mean.repeat_interleave(per, 1)
+        mul = torch.rsqrt(var + NORM_EPS).repeat_interleave(per, 1) \
+            * self.weight
+        y = (xf - mean[..., None, None]) * mul[..., None, None] \
+            + self.bias[:, None, None]
+        return y.to(x.dtype)
+
+
 class ConvBlock(nn.Module):
-    """3x3 conv (stride, dilation) -> LeakyReLU.
+    """3x3 conv (stride, dilation) -> [GroupNorm] -> LeakyReLU.
 
     ``s2b`` is accepted and ignored: in the JAX package it selects an exact
-    space-to-batch lowering of the same conv. ``use_norm`` (GroupNorm) is
-    not ported yet.
+    space-to-batch lowering of the same conv.
     """
 
     def __init__(self, cin: int, features: int, stride: int = 1,
                  dilation: int = 1, use_norm: bool = False,
                  s2b: bool = False):
         super().__init__()
-        if use_norm:
-            raise NotImplementedError("ConvBlock(use_norm=True) is not "
-                                      "ported yet (GroupNorm: ROADMAP A9)")
         self.conv = Conv3x3(cin, features, stride, dilation)
+        self.norm = GroupNorm(features) if use_norm else None
 
     def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
-        return leaky_relu(self.conv(x, mesh))
+        x = self.conv(x, mesh)
+        if self.norm is not None:
+            x = self.norm(x, mesh)
+        return leaky_relu(x)
 
 
 class StemConvs(nn.Module):

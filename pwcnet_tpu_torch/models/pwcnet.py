@@ -238,8 +238,8 @@ class PWCNet(nn.Module):
         ``pad_divisor`` -> per-level f32 flows, coarsest first.
 
         ``train`` is accepted for callers that drive PWC-Net and RAFT alike
-        and changes nothing: the JAX model reads it only for GroupNorm,
-        which is not ported.
+        and changes nothing: the JAX model passes it to its blocks, and
+        none reads it (GroupNorm keeps no batch statistics).
 
         When ``intermediates`` is a dict, it receives the pyramid of both
         frames (``"pyramid"``, NHWC, coarsest first) and each level's

@@ -86,3 +86,20 @@ class CheckpointManager:
         if self.latest_step is None:
             return state
         return self.restore(state)
+
+
+def load_model_weights(model: torch.nn.Module, directory: str) -> None:
+    """Fill ``model`` from the latest ``step_<n>.pt`` under ``directory``.
+    A directory without one (an Orbax checkpoint of the JAX package, say)
+    raises ``ValueError``."""
+    if not os.path.isdir(directory):
+        raise FileNotFoundError(f"checkpoint directory not found: "
+                                f"{directory}")
+    mgr = CheckpointManager(directory)
+    if mgr.latest_step is None:
+        raise ValueError(
+            f"{directory} holds no step_<n>.pt of the port's "
+            "CheckpointManager; an Orbax checkpoint of the JAX package "
+            "needs JAX (convert its params with pwcnet_tpu_torch.compat."
+            "load_flax_params)")
+    model.load_state_dict(mgr.load()["model"])

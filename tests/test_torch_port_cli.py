@@ -418,17 +418,6 @@ def test_cli_without_gpu_or_platform_raises(monkeypatch):
         cli.main(["predict", *PREDICT_ARGS])
 
 
-@pytest.mark.parametrize("cmd", ["match", "parity"])
-def test_match_and_parity_are_not_ported(monkeypatch, cmd):
-    """parity is not ported; match is (tests/test_torch_port_frontend.py),
-    but not with a model that needs GroupNorm, which is not either."""
-    monkeypatch.setenv("PWCNET_PLATFORM", "cpu")
-    extra = ["model.use_norm=true"] if cmd == "match" else []
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        cli.main([cmd, "--im1", f"{FIXTURES}/im1.png", "--im2",
-                  f"{FIXTURES}/im2.png", *extra])
-
-
 def test_eval_refuses_a_directory_without_port_checkpoints(tmp_path,
                                                            monkeypatch):
     (tmp_path / "5000" / "default").mkdir(parents=True)  # an Orbax layout

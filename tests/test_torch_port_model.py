@@ -112,9 +112,9 @@ def test_forward_rejects_non_divisible_size():
 
 @pytest.mark.parametrize("kwargs", [
     # The spatial path is ported (tests/test_torch_port_spatial.py), but
-    # only with half-pixel upsampling.
-    dict(spatial_axis="spatial", resize_mode="align_corners"),
-    dict(use_norm=True)])
+    # only with half-pixel upsampling. GroupNorm (use_norm) is ported:
+    # tests/test_torch_port_norm.py.
+    dict(spatial_axis="spatial", resize_mode="align_corners")])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         PWCNet(device="cpu", **kwargs)

@@ -424,7 +424,6 @@ def _changed(cfg, change):
     dict(parallel=dict(spatial=2)),
     dict(parallel=dict(spatial=2, num_processes=2, process_id=0,
                        coordinator="localhost:1")),
-    dict(model=dict(use_norm=True)),
 ])
 def test_train_raises_for_what_is_not_ported(tmp_path, change):
     cfg = _changed(_tiny_cfg(tmp_path), change)
@@ -447,14 +446,16 @@ def test_train_refuses_a_mesh_it_cannot_form(tmp_path, change, error, match):
 
 @pytest.mark.parametrize("case", ["device_gen_false", "flyingchairs",
                                   "debug_nans", "profile_dir", "raft",
-                                  "raft_inscan"])
+                                  "raft_inscan", "use_norm"])
 def test_train_runs_what_was_not_ported(tmp_path, chairs_dir, case):
-    """What raised before the file datasets, the trainer's debug switches
-    and RAFT were ported now trains: synthetic pairs through the Loader and
-    the augmentation, a FlyingChairs tree (native decoder), the NaN checks
-    (silent on finite data, and off again afterwards), the profiler (a
-    trace in profile_dir) and RAFT under both sequence losses."""
+    """What raised before the file datasets, the trainer's debug switches,
+    RAFT and GroupNorm were ported now trains: synthetic pairs through the
+    Loader and the augmentation, a FlyingChairs tree (native decoder), the
+    NaN checks (silent on finite data, and off again afterwards), the
+    profiler (a trace in profile_dir), RAFT under both sequence losses and
+    the use_norm PWC-Net."""
     change = {
+        "use_norm": dict(model=dict(use_norm=True)),
         "raft": dict(model=dict(family="raft", raft_iters=2),
                      train=dict(loss="sequence")),
         "raft_inscan": dict(model=dict(family="raft", raft_iters=2),
