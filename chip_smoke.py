@@ -40,7 +40,18 @@ on the card against ``parity_report`` on the CPU) and the reference
 names give bit-equal flows and the same report); and data-parallel
 training on two ``gloo`` ranks sharing the card (``ddp_train``: PWC-Net bf16
 with a checkpoint and a resume, f32 two ranks against one process, RAFT,
-nccl's refusal of two ranks on one card). Each phase prints one JSON line;
+nccl's refusal of two ranks on one card). Then the spatial axis completed,
+on two ``gloo`` ranks sharing the card: the gradients of the S = 2 sharded
+forward (``spatial_grad``: full-width f32 PWC-Net, batch 2 at 512x1024,
+"pallas" and "fused", against the unsharded gradients on the card, a
+planted fault that drops the halo's gradient failing the same gate; K1p or
+K6p, K4 and K5 launched on each rank, K5 held at its extended blocks),
+``align_corners`` under the mesh
+(``spatial_align``), ``train()`` on two spatial replicas (``spatial_train``:
+bf16 launches, bit-identical ranks, f32 against one process), and the
+(data=2, spatial=2) grid on four ranks (``grid_2x2``: f32 ``train()``
+against one process, ``evaluate_dataset`` and ``spatial_forward`` against
+one process). Each phase prints one JSON line;
 any failure raises and the script exits non-zero. Without a CUDA device it
 exits 1 at once. The last line is ``{"ok": true, "device": {...}}``; every
 phase's result, the predicted flows and the trainer's logs go to ``DIR``
@@ -2225,6 +2236,11 @@ RAFT_OVERFIT_STEPS = 60
 RAFT_OVERFIT_RATIO = 0.35  # JAX tests/test_raft.py::test_overfit
 
 
+def refuse_plain_correlation(*args, **kwargs):
+    """Stands for a plain correlation that a counted run must not reach."""
+    raise AssertionError("the plain correlation ran on the card's path")
+
+
 @contextlib.contextmanager
 def no_plain_correlation():
     """While open, the plain correlation raises: a run inside it goes
@@ -2234,10 +2250,7 @@ def no_plain_correlation():
     import pwcnet_tpu_torch.models.raft as raft_mod
     # The module: the package ``ops`` exports a function of the same name.
     cv = importlib.import_module("pwcnet_tpu_torch.ops.cost_volume")
-
-    def refuse(*args, **kwargs):
-        raise AssertionError("the plain correlation ran on the card's path")
-
+    refuse = refuse_plain_correlation
     with mock.patch.object(cv, "cost_volume_ref", refuse), \
             mock.patch.object(raft_mod, "cost_volume_ref", refuse):
         yield
@@ -3200,6 +3213,551 @@ def ddp_train(out_dir: str, dev, smi: str, grad_tol: float) -> dict:
     return {"launches_per_step": launches[0]}
 
 
+# -- The spatial axis completed: gradients through the halo exchange,
+# align_corners under a mesh, training on spatial replicas, the 2x2 grid.
+SPATIAL_GRAD_BATCH = 2     # spatial_grad: f32 pairs at SPATIAL_HW, S = 2
+SPATIAL_TRAIN_STEPS = 3    # spatial_train: train() on two spatial replicas
+GRID_STEPS = 2             # grid_2x2: f32 train() steps on data=2, spatial=2
+GRID_EVAL = (8, 16)        # grid_2x2: eval batch (4 rows a data index), pairs
+GRID = {"data": 2, "spatial": 2}
+PWC_CHANNELS = (16, 32, 64, 96, 128, 196)
+# A counted grad task's refusal of the sharded forward's plain
+# correlations (the launcher's "patch" option: names imported on the rank).
+# The backward of K1p and K6p is autograd of their plain versions, as in the
+# JAX package, and stays.
+SHARDED_PLAIN_REFUSED = {
+    f"pwcnet_tpu_torch.{where}": "chip_smoke.refuse_plain_correlation"
+    for where in ("models.pwcnet.cost_volume_ref",
+                  "parallel.halo.cost_volume_prepadded_ref")}
+# spatial_grad's planted fault: every exchange of the sharded forward
+# with the received rows cut from the graph.
+HALO_GRAD_DROPPED = {
+    f"pwcnet_tpu_torch.parallel.{m}.exchange_rows":
+    "chip_smoke.exchange_rows_halo_grad_dropped"
+    for m in ("halo", "spatial_ops")}
+IMAGE_EDGE_ROWS = 32  # image rows on each side of a shard edge (located)
+
+
+def exchange_rows_halo_grad_dropped(x, top, bottom, mesh, dim=1):
+    """A planted fault: ``parallel.halo.exchange_rows`` with the rows it
+    receives detached, as the exchange was before it had a backward. The
+    forward is the same; the gradient of the received rows never reaches
+    the ranks that sent them. spatial_grad's gate must fail on it."""
+    from pwcnet_tpu_torch.parallel import halo
+    if top == 0 and bottom == 0:
+        return x
+    t = x.shape[dim]
+    ext = halo._ExchangeRows.apply(x.detach(), top, bottom, mesh, dim)
+    return torch.cat([ext.narrow(dim, 0, top), x,
+                      ext.narrow(dim, top + t, bottom)], dim)
+
+
+def spatial_grad_expected(backend: str) -> dict:
+    """Launches of one S = 2 sharded forward + backward at SPATIAL_HW on
+    each rank: the forward's K1p / K6p and K4, and K5 in the backward (the
+    correlations' backward is autograd of their plain versions, as JAX
+    composes it)."""
+    return {**spatial_expected(2, backend), "stem_bwd": 1}
+
+
+def unsharded_grads(model, im1, im2, noise: float = 0.0, seed: int = 0):
+    """The gradients of sum over levels and pixels of flow**2 of the
+    unsharded ``model`` on the card w.r.t. its parameters and both images
+    (on the CPU); with ``noise``, frame 1 scaled first by 1 + noise *
+    N(0, 1) (CPU draw ``seed``)."""
+    a = im1.clone()
+    if noise:
+        a *= 1 + noise * torch.randn(a.shape, generator=torch.Generator()
+                                     .manual_seed(seed))
+    a = a.to(model.device).requires_grad_()
+    b = im2.to(model.device, copy=True).requires_grad_()
+    model.zero_grad(set_to_none=True)
+    sum((f ** 2).sum() for f in model(a, b)).backward()
+    return {**{n: p.grad.cpu() for n, p in model.named_parameters()},
+            "im1": a.grad.cpu(), "im2": b.grad.cpu()}
+
+
+def plain_prepadded_bwd_ms(timer, dev, backend: str) -> dict:
+    """Device ms of the backward that K1p's (and, under "fused", K6p's)
+    autograd Function runs, autograd of the plain version, at each level's
+    S = 2 shard shapes of a SPATIAL_GRAD_BATCH x SPATIAL_HW pair (f32, d =
+    4, halo 16 at the K6p levels): per level and summed."""
+    from pwcnet_tpu_torch.ops.cost_volume import cost_volume_prepadded_ref
+    from pwcnet_tpu_torch.ops.warp_corr import (fused_is_profitable,
+                                                warp_corr_prepadded_ref)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for lv, c in zip(range(6, 1, -1), PWC_CHANNELS[::-1]):
+        n, t, w = (SPATIAL_GRAD_BATCH, SPATIAL_HW[0] // 2 ** lv // 2,
+                   SPATIAL_HW[1] // 2 ** lv)
+        fused = backend == "fused" and lv < 6 and fused_is_profitable(t, w)
+        halo = min(16, t) if fused else 4
+        f1 = torch.randn((n, t, w, c), device=dev, generator=gen
+                         ).requires_grad_()
+        f2e = torch.randn((n, t + 2 * halo, w, c), device=dev,
+                          generator=gen).requires_grad_()
+        wrt = [f1, f2e]
+        if fused:
+            wrt.append(torch.randn((n, t + 8, w, 2), device=dev,
+                                   generator=gen).requires_grad_())
+            out = warp_corr_prepadded_ref(f1, f2e, wrt[2], t, 2 * t, halo, 4)
+        else:
+            out = cost_volume_prepadded_ref(f1, f2e, 4)
+        g = torch.randn(out.shape, device=dev, generator=gen)
+        ms = timer(lambda: torch.autograd.grad(out, wrt, g,
+                                               retain_graph=True),
+                   reps=5, inner=1)
+        rows.append({"level": lv, "shape": [n, t, w, c],
+                     "op": "warp_corr_prepadded" if fused
+                     else "cost_volume_prepadded", "ms": ms})
+    return {"levels": rows, "sum_ms": sum(r["ms"] for r in rows)}
+
+
+def grads_rule(got: dict, want: dict, floors: dict) -> dict:
+    """Per tensor, max|got - want| / max|want| and the rule it meets:
+    "1e-4" (TRAIN_TOL), else "floor" (FLOOR_FACTOR x that tensor's own
+    floor on the card), else "fails"."""
+    out = {}
+    for k, w in want.items():
+        e = rel_err(got[k], w)[1]
+        out[k] = (e, "1e-4" if e <= TRAIN_TOL else
+                  "floor" if e <= FLOOR_FACTOR * floors[k] else "fails")
+    return out
+
+
+def located_err(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Where an image gradient (N, H, W, 3) of two shards differs: max|got
+    - want| / max|want| in the IMAGE_EDGE_ROWS rows on each side of the
+    shard edge and in the other rows, and the relative L2 error."""
+    d = (got - want).abs().amax(dim=(0, 2, 3))
+    h, top = want.shape[1], want.abs().max().item()
+    edge = (torch.arange(h) - h // 2 + 0.5).abs() < IMAGE_EDGE_ROWS
+    return {"edge": d[edge].max().item() / top,
+            "interior": d[~edge].max().item() / top,
+            "rel_l2": ((got - want).norm() / want.norm()).item()}
+
+
+def sharded_grads(ranks) -> dict:
+    """The gradients of an S = 2 grad task: the parameters' (summed over
+    the ranks, as rank 0 holds them) and the images' (gathered rows)."""
+    got = dict(ranks[0]["params"])
+    for k in ("im1", "im2"):
+        got[k] = torch.cat([r[k] for r in ranks], 1)
+    return got
+
+
+def spatial_grad_k5(timer, dev) -> None:
+    """K5 with the image's gradient (need_im=True), f32, against autograd
+    of stem_ref at the blocks that the S = 2 sharded gradient of
+    spatial_grad gives it: each shard's rows and the real rows exchanged
+    beside them (STEM_ROWS below shard 0, above shard 1), with k5_check's
+    large-shape rule (``k5_case``, floor_rule)."""
+    from pwcnet_tpu_torch.parallel.spatial_ops import STEM_ROWS
+    params = stem_params(dev, seed=3)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    t = SPATIAL_HW[0] // 2
+    for rows in (t + STEM_ROWS[1], t + STEM_ROWS[0]):
+        k5_case(timer, dev, gen, params, torch.float32,
+                (SPATIAL_GRAD_BATCH, rows, SPATIAL_HW[1], 3),
+                phase="spatial_grad_k5", floor_rule=True, need_im=True)
+
+
+def spatial_replicas(out_dir: str, dev, smi: str, timer) -> dict:
+    """spatial_grad, spatial_align, spatial_train: one job of two gloo
+    ranks sharing the card, S = 2.
+
+    spatial_grad: the sharded forward + backward of the full-width PWC-Net
+    (6 levels, f32, seeded weights) on SPATIAL_GRAD_BATCH pairs at
+    SPATIAL_HW, corr_backend "pallas" and "fused", each rank's loss the sum
+    over levels of flow**2 on its rows; the parameters' gradients (summed
+    over the ranks) and the images' (gathered) against the unsharded
+    model's on the card: each tensor within 1e-4 of max, or within
+    FLOOR_FACTOR x its own floor on the card (that tensor's change in the
+    unsharded gradients when frame 1 is scaled by 1 + 1e-6 * N(0, 1), three
+    draws) where a LeakyReLU input within rounding of 0 flips; the rule of
+    each tensor is printed. The images' gradients also within FLOOR_FACTOR
+    x the floor draws' error in the IMAGE_EDGE_ROWS beside the shard edge
+    and in the L2 norm (``located_err``). A planted control, the same "pallas" run with
+    the halo's gradient dropped (``exchange_rows_halo_grad_dropped``), must
+    fail that gate. K1p (K6p under "fused") and K4 forward and K5 backward
+    launched on each rank, the plain forward correlation refused; the wall
+    ms of a forward + backward, and the device ms of the plain prepadded
+    backward. Then K5 with the image's gradient at the extended blocks it
+    takes there (``spatial_grad_k5``).
+
+    spatial_align: spatial_forward with resize_mode="align_corners", f32
+    and bf16, against the unsharded forward on the card: f32 within
+    FWD_TOL of max per level and at full resolution; bf16 finite, with its
+    errors printed (as spatial_s2, no bf16 gate).
+
+    spatial_train: train() with parallel.spatial=2, data=1 (synthetic-proof,
+    bf16, batch 8 at 384x448, SPATIAL_TRAIN_STEPS steps): the ranks'
+    parameters equal bit for bit, K1-K5 5/5/5/1/1 a step on each rank, ms
+    a step; the same steps in f32 against one process's train(): the last
+    loss within 1e-5, the parameters at every step under the DDP test's
+    rule with its floor on the card (``f32_vs_one_process``)."""
+    import dataclasses
+    import shutil
+    from pwcnet_tpu_torch import PWCNet
+    from pwcnet_tpu_torch.parallel.launch import run_ranks
+    rng = np.random.default_rng(11)
+    base = rng.random((SPATIAL_GRAD_BATCH, *SPATIAL_HW, 3), np.float32)
+    im1 = torch.from_numpy(base)
+    im2 = torch.from_numpy(np.roll(base, (2, 5), (1, 2)))
+    state = PWCNet(device="cpu", generator=torch.Generator().manual_seed(0)
+                   ).state_dict()
+    cfg = train_config("spatial_train", summary_interval=1)
+    cfg = dataclasses.replace(cfg, parallel=dataclasses.replace(
+        cfg.parallel, data=1, spatial=2))
+    shutil.rmtree(cfg.train.log_dir, ignore_errors=True)
+    cfg32 = f32_config("spatial_train_f32", data=1, spatial=2)
+    pair = (im1[:1], im2[:1])
+    tasks = [dict(kind="grad", model=dict(corr_backend=b), state_dict=state,
+                  im1=im1, im2=im2, warmup=True, patch=SHARDED_PLAIN_REFUSED)
+             for b in ("pallas", "fused")]
+    tasks.append(dict(kind="grad", model=dict(corr_backend="pallas"),
+                      state_dict=state, im1=im1, im2=im2,
+                      patch={**SHARDED_PLAIN_REFUSED, **HALO_GRAD_DROPPED}))
+    tasks += [dict(kind="forward", state_dict=state, im1=pair[0],
+                   im2=pair[1], model=dict(resize_mode="align_corners",
+                                           dtype=d))
+              for d in (torch.float32, torch.bfloat16)]
+    tasks += [dict(kind="train", cfg=cfg, max_steps=SPATIAL_TRAIN_STEPS,
+                   digest=True),
+              dict(kind="train", cfg=cfg32, max_steps=SPATIAL_TRAIN_STEPS,
+                   digest=True)]
+    t0 = time.perf_counter()
+    job_dir = os.path.join(RUN_DIR, "spatial_replicas")
+    runs = run_ranks(2, dict(backend="gloo", device=str(dev),
+                             allow_tf32=False, tasks=tasks), job_dir,
+                     timeout=900)
+    shutil.rmtree(job_dir)
+    job_s = time.perf_counter() - t0
+
+    # -- spatial_grad ----------------------------------------------------
+    row = {"phase": "spatial_grad", "hw": list(SPATIAL_HW),
+           "batch": SPATIAL_GRAD_BATCH, "dtype": "float32", "shards": 2,
+           "job_seconds": job_s, "tol": TRAIN_TOL,
+           "floor_factor": FLOOR_FACTOR, "nvidia_smi": smi}
+    ok = True
+    for i, backend in enumerate(("pallas", "fused")):
+        model = PWCNet(device=dev, corr_backend=backend).eval()
+        model.load_state_dict(state)
+        want = unsharded_grads(model, im1, im2)
+        # Each tensor's own floor: its change when frame 1 is scaled by
+        # 1 + 1e-6 N(0, 1), the most of three draws.
+        floors = dict.fromkeys(want, 0.0)
+        moved = []
+        for seed in range(3):
+            g = unsharded_grads(model, im1, im2, 1e-6, seed)
+            floors = {k: max(f, rel_err(g[k], want[k])[1])
+                      for k, f in floors.items()}
+            moved.append({k: g[k] for k in ("im1", "im2")})
+        ranks = [r[i] for r in runs]
+        got = sharded_grads(ranks)
+        rules = grads_rule(got, want, floors)
+        launches = [r["launches"] for r in ranks]
+        expected = spatial_grad_expected(backend)
+        replicated = all(torch.equal(ranks[1]["params"][k], v)
+                         for k, v in ranks[0]["params"].items())
+        located = {k: {"sharded": located_err(got[k], want[k]),
+                       "floor_draws": [located_err(m[k], want[k])
+                                       for m in moved]}
+                   for k in ("im1", "im2")}
+        # The images' second rule: at the shard edge and in the L2 norm,
+        # within FLOOR_FACTOR x what the floor draws read there.
+        images_located_ok = all(
+            v["sharded"][m] <= max(TRAIN_TOL, FLOOR_FACTOR * max(
+                d[m] for d in v["floor_draws"]))
+            for v in located.values() for m in ("edge", "rel_l2"))
+        row[backend] = {
+            "launches_per_rank": launches, "expected": expected,
+            "wall_ms_fwd_bwd_per_rank": [r["wall_ms"] for r in ranks],
+            "loss_per_rank": [r["loss"] for r in ranks],
+            "max_rel_err": max(e for e, _ in rules.values()),
+            "worst5": sorted(((k, e, r, floors[k])
+                              for k, (e, r) in rules.items()),
+                             key=lambda t: -t[1])[:5],
+            "tensors_by_rule": {r: sum(1 for _, rr in rules.values()
+                                       if rr == r)
+                                for r in ("1e-4", "floor", "fails")},
+            "floor_rule_tensors": {k: {"rel_err": e, "card_floor_1e-6":
+                                       floors[k]}
+                                   for k, (e, r) in rules.items()
+                                   if r == "floor"},
+            "floors_above_1e-4": {k: f for k, f in floors.items()
+                                  if f > TRAIN_TOL},
+            "image_grads_located": located,
+            "image_grads_located_ok": images_located_ok,
+            "param_grads_replicated": replicated,
+            "plain_prepadded_bwd_ms": plain_prepadded_bwd_ms(timer, dev,
+                                                             backend)}
+        ok &= (all(la == expected for la in launches) and replicated
+               and images_located_ok
+               and all(r != "fails" for _, r in rules.values()))
+        if backend == "pallas":
+            # The planted fault (the halo's gradient dropped) must fail the
+            # same gate.
+            bad = sharded_grads([r[2] for r in runs])
+            control = grads_rule(bad, want, floors)
+            failing = sorted(((k, e, max(TRAIN_TOL, FLOOR_FACTOR * floors[k]))
+                              for k, (e, r) in control.items()
+                              if r == "fails"), key=lambda t: -t[1] / t[2])
+            row["control_halo_grad_dropped"] = {
+                "tensors_failing": len(failing), "of": len(control),
+                "worst5_err_tol": failing[:5],
+                "images_fail": [k for k in ("im1", "im2")
+                                if control[k][1] == "fails"],
+                "image_grads_located": {k: located_err(bad[k], want[k])
+                                        for k in ("im1", "im2")}}
+            ok &= bool(failing)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"spatial_grad failed: {row}")
+    spatial_grad_k5(timer, dev)
+
+    # -- spatial_align ---------------------------------------------------
+    row = {"phase": "spatial_align", "hw": list(SPATIAL_HW),
+           "resize_mode": "align_corners", "tol_f32": FWD_TOL,
+           "nvidia_smi": smi}
+    ok = True
+    for i, dtype in ((3, torch.float32), (4, torch.bfloat16)):
+        model = PWCNet(device=dev, resize_mode="align_corners",
+                       dtype=dtype).eval()
+        model.load_state_dict(state)
+        with torch.inference_mode():
+            flows = model(pair[0].to(dev), pair[1].to(dev))
+            ref = (flows, model.full_res_flow(flows, SPATIAL_HW))
+        key = "f32" if dtype == torch.float32 else "bf16"
+        errs = [level_errs(r[i]["flows"], r[i]["full"], ref) for r in runs]
+        finite = all(bool(torch.isfinite(f).all()) for r in runs
+                     for f in [*r[i]["flows"], r[i]["full"]])
+        row[key] = {"rel_err_per_level_and_full": errs,
+                    "launches_rank0": runs[0][i]["launches"],
+                    "finite": finite}
+        ok &= finite and (dtype == torch.bfloat16
+                          or max(max(e) for e in errs) <= FWD_TOL)
+    emit(row)
+    if not ok:
+        raise AssertionError(f"spatial_align failed: {row}")
+
+    # -- spatial_train ---------------------------------------------------
+    bf16, f32 = ([r[i] for r in runs] for i in (5, 6))
+    recs = _metrics(cfg.train.log_dir)
+    walls = {r["step"]: cfg.train.global_batch * 1e3 / r["pairs_per_sec"]
+             for r in recs}
+    launches = [r["launches_per_step"] for r in bf16]
+    vs_one = f32_vs_one_process(cfg32, dev, SPATIAL_TRAIN_STEPS)
+    row = {"phase": "spatial_train", "config": "synthetic-proof, bf16, "
+           f"batch {cfg.train.global_batch} at {cfg.data.augment.crop_hw}, "
+           "parallel.spatial=2, data=1", "steps": SPATIAL_TRAIN_STEPS,
+           "final": [r["final"] for r in bf16],
+           "digests": [r["params"] for r in bf16],
+           "launches_per_step_per_rank": launches,
+           "ms_per_step_wall": walls, "nvidia_smi": smi,
+           "f32_vs_one_process": {**vs_one,
+                                  "ranks_equal": _ranks_equal(f32)}}
+    emit(row)
+    if not (_ranks_equal(bf16) and all(_finite(r["final"]) for r in bf16)
+            and all(lc == TRAIN_LAUNCHES for lc in launches)
+            and vs_one["ok"] and _ranks_equal(f32)):
+        raise AssertionError(f"spatial_train failed: {row}")
+    return {"spatial_grad": {b: spatial_grad_expected(b)
+                             for b in ("pallas", "fused")},
+            "launches_per_rank": {
+                b: [r[i]["launches"] for r in runs]
+                for i, b in enumerate(("pallas", "fused"))}}
+
+
+# tests/test_torch_port_ddp.py's tolerances: the loss (rtol 1e-5), and the
+# parameters after every step: at least DDP_PARAM_SHARE of the entries
+# within rtol 2e-4, atol 2e-6, every entry within 2 x lr a step (an entry
+# whose gradient is within rounding of 0 takes an Adam step of about +-lr
+# either way). The share may go down to FLOOR_FACTOR x the share by which
+# two runs of one process differ at that step, where the card does not
+# repeat a run bit for bit.
+DDP_LOSS_RTOL = 1e-5
+DDP_PARAM_SHARE = 0.999
+ONE_PROCESS: dict = {}
+
+
+def params_share(got: dict, want: dict):
+    """The share of entries within rtol 2e-4, atol 2e-6 of ``want``, and
+    the largest difference."""
+    inside = total = 0
+    worst = 0.0
+    for k, w in want.items():
+        d = (got[k].double() - w.double()).abs()
+        inside += int((d <= 2e-6 + 2e-4 * w.double().abs()).sum())
+        total += w.numel()
+        worst = max(worst, d.max().item())
+    return inside / total, worst
+
+
+def checkpoint_params(cfg, step: int) -> dict:
+    """The parameters of the checkpoint of ``step`` under cfg's log_dir."""
+    from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
+    from pwcnet_tpu_torch.train.loop import build_model
+    m = build_model(cfg, "cpu")
+    m.load_state_dict(CheckpointManager(os.path.join(
+        cfg.train.log_dir, "ckpt")).load(step)["model"])
+    return {n: p.detach() for n, p in m.named_parameters()}
+
+
+def f32_config(name: str, **parallel):
+    """synthetic-proof (batch 8 at 384x448) in f32, a summary and a
+    checkpoint every step, on the grid ``parallel`` names."""
+    import dataclasses
+    import shutil
+    cfg = train_config(name, summary_interval=1, checkpoint_interval=1)
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype="float32"),
+        parallel=dataclasses.replace(cfg.parallel, **parallel))
+    shutil.rmtree(cfg.train.log_dir, ignore_errors=True)
+    return cfg
+
+
+def one_process_f32(dev, steps: int) -> dict:
+    """One process's f32 train() (``f32_config``), run twice, each run in
+    a fresh process of its own (``run_ranks`` of one rank), as the ranks
+    held against it run: per step, the first run's metrics and both runs'
+    parameters. Made once, for spatial_train and grid_2x2."""
+    import shutil
+    from pwcnet_tpu_torch.parallel.launch import run_ranks
+    if ONE_PROCESS.get("steps", 0) >= steps:
+        return ONE_PROCESS
+    runs = []
+    for i in range(2):
+        cfg = f32_config(f"one_f32_{i}")
+        job_dir = os.path.join(RUN_DIR, f"one_f32_{i}_job")
+        run_ranks(1, dict(backend="gloo", device=str(dev), allow_tf32=False,
+                          tasks=[dict(kind="train", cfg=cfg, max_steps=steps,
+                                      digest=True)]), job_dir, timeout=600)
+        shutil.rmtree(job_dir)
+        runs.append({s: checkpoint_params(cfg, s)
+                     for s in range(1, steps + 1)})
+        if i == 0:
+            ONE_PROCESS["metrics"] = {r["step"]: r for r in _metrics(
+                cfg.train.log_dir)}
+    ONE_PROCESS.update(steps=steps, params=runs)
+    return ONE_PROCESS
+
+
+def f32_vs_one_process(cfg, dev, steps: int) -> dict:
+    """The f32 train() of several ranks under ``cfg`` (rank 0's metrics and
+    checkpoints) against one process's, under the DDP test's tolerances:
+    after every step, the share (against its floor on the card: two runs
+    of one process at that step) and the bound; the loss at the last."""
+    one = one_process_f32(dev, steps)
+    bound = 2 * cfg.train.schedule.base_lr  # a step's, either sign
+    out = {"steps": steps, "loss_rtol": DDP_LOSS_RTOL,
+           "bound_per_step": bound, "share": [], "max_abs_diff": [],
+           "one_process_twice_share": [], "share_min": []}
+    ok = True
+    for step in range(1, steps + 1):
+        share, diff = params_share(checkpoint_params(cfg, step),
+                                   one["params"][0][step])
+        twice, _ = params_share(one["params"][1][step],
+                                one["params"][0][step])
+        least = min(DDP_PARAM_SHARE, 1 - FLOOR_FACTOR * (1 - twice))
+        for k, v in (("share", share), ("max_abs_diff", diff),
+                     ("one_process_twice_share", twice),
+                     ("share_min", least)):
+            out[k].append(v)
+        ok &= share >= least and diff <= bound * step
+    recs = {r["step"]: r for r in _metrics(cfg.train.log_dir)}
+    want = one["metrics"][steps]["loss"]
+    out["loss_rel_err"] = abs(recs[steps]["loss"] - want) / abs(want)
+    out["ok"] = ok and out["loss_rel_err"] <= DDP_LOSS_RTOL
+    return out
+
+
+def grid_2x2(out_dir: str, dev, smi: str) -> None:
+    """grid_2x2: four gloo ranks share the card as the (data=2, spatial=2)
+    grid. GRID_STEPS f32 train() steps (synthetic-proof at batch 8,
+    384x448): every rank's parameters equal, and within the DDP test's
+    rule (with its floor on the card) of one process's train();
+    evaluate_dataset on the grid (f32, GRID_EVAL) against one process's:
+    the same samples and valid pixels (none counted twice), the EPEs within
+    1e-4, Fl-all within one outlier pixel; spatial_forward on the grid (f32,
+    pallas, SPATIAL_HW) against the unsharded forward, FWD_TOL per
+    level."""
+    import shutil
+    from pwcnet_tpu_torch import PWCNet
+    from pwcnet_tpu_torch.data.synthetic import SyntheticFlow
+    from pwcnet_tpu_torch.parallel.launch import run_ranks
+    from pwcnet_tpu_torch.train.evaluate import evaluate_dataset
+    from pwcnet_tpu_torch.train.loop import build_model
+    cfg = f32_config("grid", **GRID)
+    state = PWCNet(device="cpu", generator=torch.Generator().manual_seed(0)
+                   ).state_dict()
+    rng = np.random.default_rng(1)
+    base = rng.random((*SPATIAL_HW, 3), np.float32)
+    im1 = torch.from_numpy(base)[None]
+    im2 = torch.from_numpy(np.roll(base, (2, 5), (0, 1)))[None]
+    val = SyntheticFlow(split="val", hw=cfg.data.sample_hw)
+    batch, limit = GRID_EVAL
+    tasks = [dict(kind="train", cfg=cfg, max_steps=GRID_STEPS, digest=True),
+             dict(kind="eval", mesh=GRID, cfg=cfg, state_dict=state,
+                  dataset=val, batch=batch, limit=limit),
+             dict(kind="forward", mesh=GRID, state_dict=state, im1=im1,
+                  im2=im2, model=dict(corr_backend="pallas")),
+             dict(kind="mesh", mesh=GRID)]
+    t0 = time.perf_counter()
+    job_dir = os.path.join(RUN_DIR, "grid_2x2")
+    runs = run_ranks(4, dict(backend="gloo", device=str(dev),
+                             allow_tf32=False, tasks=tasks), job_dir,
+                     timeout=900)
+    shutil.rmtree(job_dir)
+    job_s = time.perf_counter() - t0
+    trains, evals, fwds, meshes = ([r[i] for r in runs] for i in range(4))
+
+    vs_one = f32_vs_one_process(cfg, dev, GRID_STEPS)
+
+    model = build_model(cfg, dev).eval()
+    model.load_state_dict(state)
+    want_eval = evaluate_dataset(model, val, batch=batch, limit=limit)
+    eval_errs = {k: abs(evals[0][k] - w) / max(abs(w), 1e-30)
+                 for k, w in want_eval.items()}
+    same_counts = all(e["num_samples"] == want_eval["num_samples"]
+                      and e["num_valid_px"] == want_eval["num_valid_px"]
+                      for e in evals)
+    pixel = 100.0 / want_eval["num_valid_px"]  # one outlier pixel, in %
+    eval_ok = same_counts and all(
+        abs(e["fl_all"] - want_eval["fl_all"]) <= pixel + 1e-4 * abs(
+            want_eval["fl_all"])
+        and all(abs(e[k] - w) <= 1e-4 * abs(w) for k, w in want_eval.items()
+                if k not in ("fl_all", "num_samples", "num_valid_px"))
+        for e in evals)
+
+    fmodel = PWCNet(device=dev).eval()
+    fmodel.load_state_dict(state)
+    with torch.inference_mode():
+        flows = fmodel(im1.to(dev), im2.to(dev))
+        ref = (flows, fmodel.full_res_flow(flows, SPATIAL_HW))
+    fwd_errs = [level_errs(f["flows"], f["full"], ref) for f in fwds]
+    row = {"phase": "grid_2x2", "shape": [2, 2, 1], "job_seconds": job_s,
+           "nvidia_smi": smi,
+           "mesh": [{k: m[k] for k in ("rank", "index", "data_ranks",
+                                        "spatial_ranks")} for m in meshes],
+           "train_f32": {
+               "steps": GRID_STEPS, "final": [t["final"] for t in trains],
+               "launches_per_step_per_rank": [t["launches_per_step"]
+                                              for t in trains],
+               "ranks_equal": _ranks_equal(trains), "vs_one_process": vs_one},
+           "eval": {"grid": evals[0], "one_process": want_eval,
+                    "rel_err": eval_errs, "ok": eval_ok},
+           "forward_f32_rel_err_per_rank": fwd_errs, "tol": FWD_TOL}
+    emit(row)
+    if not (_ranks_equal(trains) and vs_one["ok"]
+            and all(t["launches_per_step"] == TRAIN_LAUNCHES
+                    for t in trains)
+            and eval_ok and max(max(e) for e in fwd_errs) <= FWD_TOL
+            and [m["index"] for m in meshes] == [
+                (0, 0, 0), (0, 1, 0), (1, 0, 0), (1, 1, 0)]):
+        raise AssertionError(f"grid_2x2 failed: {row}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default=os.path.join("build", "chip_smoke"),
@@ -3457,6 +4015,12 @@ def main() -> int:
         norm_tr = norm_train(dev, timer, smi)
         pth_import(parity_trained(out_dir, smi), dev, smi)
         ddp = ddp_train(out_dir, dev, smi, f32_grad_tol)
+
+        # -- 5g. The spatial axis completed: gradients through the halo
+        # exchange, align_corners under a mesh, train() on spatial replicas
+        # (two gloo ranks), and the 2x2 grid (four) ---------------------------
+        replicas = spatial_replicas(out_dir, dev, smi, timer)
+        grid_2x2(out_dir, dev, smi)
     finally:
         shutil.rmtree(tree_dir, ignore_errors=True)
         shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -3524,6 +4088,13 @@ def main() -> int:
     for k in kernels[:5]:
         k["ddp_launches_per_step_per_rank"] = ddp["launches_per_step"][
             k["name"]]
+    # K1p, K6p, K4 and K5 under the S = 2 sharded gradient (spatial_grad):
+    # launches per forward + backward on each rank, per backend.
+    for k in kernels:
+        counts = {b: [la.get(k["name"], 0) for la in ls]
+                  for b, ls in replicas["launches_per_rank"].items()}
+        if any(any(c) for c in counts.values()):
+            k["spatial_grad_launches_per_rank"] = counts
     emit({"phase": "raft_levels", "levels": {
         name: [{k: r[k] for k in ("shape", "plan", "ms", "bound_ms",
                                   "plain_ms")} for r in rs.values()]

@@ -1,8 +1,8 @@
 """Command line of the port (counterpart of ``pwcnet_tpu/cli.py``):
 
     python -m pwcnet_tpu_torch.cli train   --preset chairs-1chip [--max-steps N] [--backend nccl|gloo] data.root=DIR [section.field=value ...]
-    python -m pwcnet_tpu_torch.cli eval    --preset sintel-eval [--ckpt DIR] [--split val] data.root=DIR [...]
-    python -m pwcnet_tpu_torch.cli predict --im1 a.png --im2 b.png [--ckpt DIR] [--out flow.flo] [--vis flow.png]
+    python -m pwcnet_tpu_torch.cli eval    --preset sintel-eval [--ckpt DIR] [--split val] [--backend nccl|gloo] data.root=DIR [...]
+    python -m pwcnet_tpu_torch.cli predict --im1 a.png --im2 b.png [--ckpt DIR] [--out flow.flo] [--vis flow.png] [--backend nccl|gloo]
     python -m pwcnet_tpu_torch.cli match   --im1 a.png --im2 b.png [--ckpt DIR] [--out matches.txt] [--grid-step 8] [--fb-threshold 1.5]
     python -m pwcnet_tpu_torch.cli parity  --im1 a.png --im2 b.png [--gt gt.flo] [--ref-flow ref.flo] [--ckpt DIR|ref.pth] [--sweep]
     python -m pwcnet_tpu_torch.cli config  --preset synthetic-proof [...]
@@ -18,12 +18,18 @@ versions of the kernels). With no GPU and no such setting it raises.
 ``parity`` also takes a reference PWC-Net ``.pth``/``.pt`` state dict
 (``compat/torch_import.py``) and prints its report as JSON
 (``train/parity.py``).
-``train`` runs data-parallel on N processes, one per card: start each with
+``train``, ``eval`` and ``predict`` run on a (data, spatial, model) grid
+of N processes, one per card (``parallel.data``, ``parallel.spatial``,
+``parallel.model``; ``data=-1`` takes the processes left): start each with
 ``parallel.num_processes=N parallel.process_id=<rank>
 parallel.coordinator=<host:port of rank 0>``, or all of them with
 ``torchrun --nproc_per_node=N -m pwcnet_tpu_torch.cli train ...``.
-``--backend`` picks the collectives (default: ``nccl`` on the GPU,
-``gloo`` on the CPU; ``gloo`` lets several ranks share one card).
+``train`` and ``eval`` split each batch over ``data`` and replicate over
+``spatial`` and ``model``, as the JAX trainer does; ``predict`` shards the
+pair's rows over ``spatial`` (``parallel.spatial_forward``). Process 0
+alone prints and writes. ``--backend`` picks the collectives (default:
+``nccl`` on the GPU, ``gloo`` on the CPU; ``gloo`` lets several ranks share
+one card).
 """
 
 from __future__ import annotations
@@ -59,15 +65,32 @@ def _load_cfg(args):
     return apply_overrides(cfg, args.overrides)
 
 
-def _model(cfg, ckpt: Optional[str]):
-    """The config's model on the selected device, with the weights of the
-    latest checkpoint under ``ckpt`` when given."""
+def _model(cfg, ckpt: Optional[str], device=None):
+    """The config's model on ``device`` (None: the selected device), with
+    the weights of the latest checkpoint under ``ckpt`` when given."""
     from pwcnet_tpu_torch.train.checkpoint import load_model_weights
     from pwcnet_tpu_torch.train.loop import build_model
-    model = build_model(cfg, _device())
+    model = build_model(cfg, _device() if device is None else device)
     if ckpt:
         load_model_weights(model, ckpt)
     return model.eval()
+
+
+def _mesh(cfg, backend: Optional[str]):
+    """The grid that ``cfg.parallel`` names, joined as ``train`` joins it
+    (a mesh of one process without a process group)."""
+    from pwcnet_tpu_torch.parallel.mesh import (MeshConfig,
+                                                initialize_distributed,
+                                                make_mesh)
+    device = _device()
+    if backend is None:
+        backend = "gloo" if device == "cpu" else "nccl"
+    p = cfg.parallel
+    initialize_distributed(p.coordinator, p.num_processes, p.process_id,
+                           backend)
+    return make_mesh(MeshConfig(data=p.data, spatial=p.spatial,
+                                model=p.model), backend=backend,
+                     device=device)
 
 
 def cmd_train(args) -> int:
@@ -82,14 +105,16 @@ def cmd_eval(args) -> int:
     from pwcnet_tpu_torch.data.base import get_dataset
     from pwcnet_tpu_torch.train.evaluate import evaluate_dataset
     cfg = _load_cfg(args)
-    model = _model(cfg, args.ckpt)
+    mesh = _mesh(cfg, args.backend)
+    model = _model(cfg, args.ckpt, mesh.device)
     ds_kw = ({"hw": cfg.data.sample_hw, "regime": cfg.data.synthetic_regime,
               "val_length": cfg.data.synthetic_val_length}
              if cfg.data.name == "synthetic" else {})
     ds = get_dataset(cfg.data.name, cfg.data.root, split=args.split, **ds_kw)
     out = evaluate_dataset(model, ds, batch=cfg.data.eval_batch,
-                           limit=cfg.train.eval_limit)
-    print(json.dumps(out))
+                           limit=cfg.train.eval_limit, mesh=mesh)
+    if mesh.rank == 0:
+        print(json.dumps(out))
     return 0
 
 
@@ -97,9 +122,15 @@ def cmd_predict(args) -> int:
     from pwcnet_tpu_torch.data.base import read_image
     from pwcnet_tpu_torch.io import flow_to_rgb, save_flow, write_png
     from pwcnet_tpu_torch.train.evaluate import predict_flow
+    from pwcnet_tpu_torch.parallel.spatial import predict_flow_spatial
     cfg = _load_cfg(args)
-    model = _model(cfg, args.ckpt)
-    flow = predict_flow(model, read_image(args.im1), read_image(args.im2))
+    mesh = _mesh(cfg, args.backend)
+    model = _model(cfg, args.ckpt, mesh.device)
+    im1, im2 = read_image(args.im1), read_image(args.im2)
+    flow = (predict_flow_spatial(model, mesh, im1, im2)
+            if mesh.spatial_mesh.size > 1 else predict_flow(model, im1, im2))
+    if mesh.rank:
+        return 0
     if args.out:
         save_flow(args.out, flow)
     if args.vis:
@@ -159,22 +190,27 @@ def main(argv=None) -> int:
         p.add_argument("overrides", nargs="*",
                        help="section.field=value overrides")
 
+    def backend(p):
+        p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                       help="collectives of a run on several processes "
+                            "(default: nccl on the GPU, gloo on the CPU)")
+
     p = sub.add_parser("train", help="run training")
     common(p)
     p.add_argument("--max-steps", type=int, default=None)
-    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
-                   help="collectives of a data-parallel run (default: nccl "
-                        "on the GPU, gloo on the CPU)")
+    backend(p)
     p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("eval", help="evaluate a checkpoint on a dataset")
     common(p)
+    backend(p)
     p.add_argument("--ckpt", default=None)
     p.add_argument("--split", default="val")
     p.set_defaults(fn=cmd_eval)
 
     p = sub.add_parser("predict", help="flow for one image pair")
     common(p)
+    backend(p)
     p.add_argument("--ckpt", default=None)
     p.add_argument("--im1", required=True)
     p.add_argument("--im2", required=True)
@@ -217,7 +253,12 @@ def main(argv=None) -> int:
     p.set_defaults(fn=cmd_config)
 
     args = parser.parse_args(argv)
-    return args.fn(args)
+    rc = args.fn(args)
+    import torch.distributed as dist
+    if dist.is_initialized():  # no rank leaves while another needs the group
+        dist.barrier()
+        dist.destroy_process_group()
+    return rc
 
 
 if __name__ == "__main__":

@@ -264,15 +264,17 @@ def make_device_batcher(global_batch: int, hw: Tuple[int, int],
     ``np.random.default_rng((seed, 2, s, i))`` (stream tag 2, apart from the
     JAX package's host train/val streams 0 and 1) and renders them on the
     device, so the batches are deterministic in (seed, step) and a resumed
-    run sees the same stream. Under a data ``mesh`` rank r renders only its
-    rows ``[r*N/p, (r+1)*N/p)`` of the global batch, with their global
-    indices i: the ranks' rows together are the one-process batch. The JAX
+    run sees the same stream. Under a ``mesh`` the rank of data index r
+    renders only its rows ``[r*N/p, (r+1)*N/p)`` of the global batch (p the
+    data axis's size), with their global indices i: the data rows together
+    are the one-process batch, and a data row's spatial and model replicas
+    render the same rows. The JAX
     device batcher draws with ``jax.random``, whose bits torch cannot
     reproduce: the two batchers give the same law, not the same samples.
     Parity is held on ``_render``.
     """
     n = local_batch_size(global_batch, mesh)
-    first = 0 if mesh is None else mesh.rank * n
+    first = 0 if mesh is None else mesh.data_mesh.rank * n
 
     def batch(step: int) -> Dict[str, torch.Tensor]:
         samples = []

@@ -8,8 +8,8 @@ SAME padding (``conv_same``) and LeakyReLU slope 0.1. ``ConvBlock(
 use_norm=True)`` puts flax's ``nn.GroupNorm`` between the conv and the
 LeakyReLU (``GroupNorm``).
 
-Every ``forward`` takes an optional ``mesh``
-(``pwcnet_tpu_torch.parallel.mesh.SpatialMesh``): with one, the input is
+Every ``forward`` takes an optional ``mesh`` (the spatial axis of a
+``pwcnet_tpu_torch.parallel.mesh.GridMesh``): with one, the input is
 this rank's rows of an H-sharded activation and each conv exchanges the
 rows it reads across shard edges (``parallel/spatial_ops.py``).
 """

@@ -28,7 +28,7 @@ from pwcnet_tpu_torch.models.init import init_params
 from pwcnet_tpu_torch.models.layers import (ConvBlock, ConvStack, Conv3x3,
                                             StemConvs, leaky_relu)
 from pwcnet_tpu_torch.ops.cost_volume import cost_volume, cost_volume_ref
-from pwcnet_tpu_torch.ops.resize import resize_bilinear
+from pwcnet_tpu_torch.ops.resize import RESIZE_MODES, resize_bilinear
 from pwcnet_tpu_torch.ops.warp import warp_bilinear
 from pwcnet_tpu_torch.ops.warp_corr import fused_is_profitable, warp_corr
 from pwcnet_tpu_torch.parallel.halo import warp_corr_spatial
@@ -181,11 +181,9 @@ class PWCNet(nn.Module):
         if spatial_axis not in (None, SPATIAL_AXIS):
             raise ValueError(f"spatial_axis must be None or "
                              f"{SPATIAL_AXIS!r}, got {spatial_axis!r}")
-        if spatial_axis is not None and resize_mode != "half_pixel":
-            raise NotImplementedError(
-                "the spatial path upsamples half-pixel only; "
-                f"resize_mode={resize_mode!r} under spatial_axis is not "
-                "ported (ROADMAP A7)")
+        if resize_mode not in RESIZE_MODES:
+            raise ValueError(f"resize_mode must be one of {RESIZE_MODES}, "
+                             f"got {resize_mode!r}")
         if corr_backend not in ("lax", "pallas", "fused"):
             raise ValueError(f"unknown corr_backend {corr_backend!r}")
         if dtype not in (torch.float32, torch.bfloat16):
@@ -245,17 +243,19 @@ class PWCNet(nn.Module):
         frames (``"pyramid"``, NHWC, coarsest first) and each level's
         correlation before its LeakyReLU (``"corr"``, NHWC).
 
-        With a ``mesh`` (``parallel.mesh.SpatialMesh``), the images are this
-        rank's rows ``[r*t, (r+1)*t)`` of the H-sharded pair (the whole
-        image's H divisible by ``pad_divisor * mesh.size``), and so are the
-        returned flows; every rank of the mesh must call it.
+        With a ``mesh`` (a ``parallel.mesh.GridMesh``, whose spatial axis
+        is taken), the images are this rank's rows ``[r*t,
+        (r+1)*t)`` of the H-sharded pair (the whole image's H divisible by
+        ``pad_divisor * S``), and so are the returned flows; every rank of
+        the spatial axis must call it. The sharded forward is
+        differentiable (``parallel/halo.py``, ``parallel/spatial_ops.py``):
+        the global loss is the sum of the ranks' losses on their rows.
         """
         if mesh is None and self.spatial_axis is not None:
             raise ValueError("a model with spatial_axis runs under a mesh: "
                              "pass mesh=, or use parallel.spatial_forward")
-        if mesh is not None and self.resize_mode != "half_pixel":
-            raise NotImplementedError(
-                "the spatial path upsamples half-pixel only (ROADMAP A7)")
+        if mesh is not None:
+            mesh = mesh.spatial_mesh
         div = self.pad_divisor
         h, w = im1.shape[1], im1.shape[2]
         if h % div or w % div:
@@ -283,7 +283,8 @@ class PWCNet(nn.Module):
                 up_flow = f1h.new_zeros(f1h.shape[:3] + (2,),
                                         dtype=torch.float32)
             else:
-                up_flow = (upsample2x_rows(flow, mesh) if mesh is not None
+                up_flow = (upsample2x_rows(flow, mesh, self.resize_mode)
+                           if mesh is not None
                            else resize_bilinear(flow, tuple(f1h.shape[1:3]),
                                                 self.resize_mode))
                 pix = up_flow * (self.flow_scale / 2.0 ** level)

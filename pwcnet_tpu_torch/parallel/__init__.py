@@ -1,14 +1,12 @@
-"""The port's data parallelism and spatial (image-H) sharding over
-``torch.distributed``."""
+"""The port's (data, spatial, model) grid of processes over
+``torch.distributed``: data parallelism and spatial (image-H) sharding."""
 
 from pwcnet_tpu_torch.parallel.mesh import (  # noqa: F401
     DATA_AXIS,
     MODEL_AXIS,
     SPATIAL_AXIS,
-    DataMesh,
+    GridMesh,
     MeshConfig,
-    ProcessMesh,
-    SpatialMesh,
     initialize_distributed,
     local_batch_size,
     make_mesh,
@@ -22,6 +20,7 @@ from pwcnet_tpu_torch.parallel.halo import (  # noqa: F401
 )
 from pwcnet_tpu_torch.parallel.spatial import (  # noqa: F401
     pad_for_spatial,
+    predict_flow_spatial,
     required_divisor,
     spatial_forward,
 )

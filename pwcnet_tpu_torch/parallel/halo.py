@@ -2,10 +2,16 @@
 (counterpart of ``pwcnet_tpu/parallel/halo.py``).
 
 Activations are sharded along image H over the ranks of a
-:class:`~pwcnet_tpu_torch.parallel.mesh.SpatialMesh`: rank ``r`` holds rows
-``[r*t, (r+1)*t)``. ``exchange_rows`` gives each shard rows of its ring
-neighbours (``dist.batch_isend_irecv``, several hops when a shard has fewer
-rows than asked for), with zeros past the global edges.
+:class:`~pwcnet_tpu_torch.parallel.mesh.GridMesh`'s spatial axis: rank ``r`` holds rows ``[r*t, (r+1)*t)``. ``exchange_rows`` gives
+each shard rows of its ring neighbours (``dist.batch_isend_irecv``, several
+hops when a shard has fewer rows than asked for), with zeros past the
+global edges. It is differentiable: its backward is the transpose of the
+exchange, as JAX's ``ppermute`` transposes to the reverse ring. The
+gradient of the rows a rank received goes back to the rank that sent them
+and is added onto the rows it sent; gradient on the zeros past a global
+edge is dropped. So the sharded warp + correlation, and every op built on
+the exchange, has the unsharded gradients (the global loss being the sum of
+the ranks' local losses).
 
 Semantics contract, as in the JAX package: the warp's vertical reach across
 a shard edge is bounded by the exchanged halo. A sample beyond the
@@ -27,61 +33,116 @@ from pwcnet_tpu_torch.ops.cost_volume import (cost_volume_prepadded,
 from pwcnet_tpu_torch.ops.warp import warp_ext_ref
 from pwcnet_tpu_torch.ops.warp_corr import (fused_is_profitable,
                                             warp_corr_prepadded)
-from pwcnet_tpu_torch.parallel.mesh import SpatialMesh
+from pwcnet_tpu_torch.parallel.mesh import GridMesh
 
 
-def to_comm(x: torch.Tensor, mesh: SpatialMesh) -> torch.Tensor:
-    """A contiguous copy of ``x`` that the mesh's backend can send."""
-    return x.detach().cpu().contiguous() if mesh.stage_on_host \
-        else x.contiguous()
+def to_comm(x: torch.Tensor, mesh: GridMesh) -> torch.Tensor:
+    """A contiguous copy of ``x`` that the mesh's backend can send (on the
+    host under ``gloo`` for a CUDA tensor). Not differentiable: the
+    collectives' autograd Functions call it on their own inputs."""
+    return x.cpu().contiguous() if mesh.stage_on_host else x.contiguous()
 
 
-def _hop(down: torch.Tensor, up: torch.Tensor, mesh: SpatialMesh):
+def _hop(down: torch.Tensor, up: torch.Tensor, mesh: GridMesh):
     """One ring step: ``down`` goes to rank + 1 and ``up`` to rank - 1.
     Returns (from the rank above, from the rank below), zeros where there is
     no neighbour."""
     r, s = mesh.rank, mesh.size
     from_above, from_below = torch.zeros_like(down), torch.zeros_like(up)
+    if s == 1:
+        return from_above, from_below
     ops = []
     if r > 0:
-        ops += [dist.P2POp(dist.isend, up, r - 1, mesh.group),
-                dist.P2POp(dist.irecv, from_above, r - 1, mesh.group)]
+        peer = mesh.global_rank(r - 1)
+        ops += [dist.P2POp(dist.isend, up, peer, mesh.group),
+                dist.P2POp(dist.irecv, from_above, peer, mesh.group)]
     if r < s - 1:
-        ops += [dist.P2POp(dist.isend, down, r + 1, mesh.group),
-                dist.P2POp(dist.irecv, from_below, r + 1, mesh.group)]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        peer = mesh.global_rank(r + 1)
+        ops += [dist.P2POp(dist.isend, down, peer, mesh.group),
+                dist.P2POp(dist.irecv, from_below, peer, mesh.group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
     return from_above, from_below
 
 
-def exchange_rows(x: torch.Tensor, top: int, bottom: int, mesh: SpatialMesh,
+class _ExchangeRows(torch.autograd.Function):
+    """``exchange_rows`` with its transpose as the backward."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, mesh, dim):
+        t = x.shape[dim]
+        hops = max(-(-top // t), -(-bottom // t))
+        ctx.geometry = (top, bottom, mesh, dim, hops)
+        down = up = to_comm(x, mesh)
+        above, below = [], []
+        for _ in range(hops):
+            down, up = _hop(down, up, mesh)
+            above.insert(0, down)  # from the ranks r - hops .. r - 1
+            below.append(up)       # from the ranks r + 1 .. r + hops
+        top_rows = torch.cat(above, dim).narrow(dim, hops * t - top, top)
+        bot_rows = torch.cat(below, dim).narrow(dim, 0, bottom)
+        return torch.cat([top_rows.to(x.device, x.dtype), x,
+                          bot_rows.to(x.device, x.dtype)], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        top, bottom, mesh, dim, hops = ctx.geometry
+        t = g.shape[dim] - top - bottom
+        g_top, g_mid, g_bot = g.split([top, t, bottom], dim)
+        # The gradient of the block received from rank r - k (k = 1..hops)
+        # and of the block from rank r + k, zero rows where a count is not
+        # a multiple of t.
+        g_top = torch.cat([g_top.new_zeros(_rows(g, dim, hops * t - top)),
+                           g_top], dim)
+        g_bot = torch.cat([g_bot, g_bot.new_zeros(
+            _rows(g, dim, hops * t - bottom))], dim)
+        # g_above[k]: the gradient of the block from rank r - k - 1, which
+        # this rank forwarded down k more hops; g_below[k] likewise.
+        g_above = [to_comm(c, mesh) for c in g_top.split(t, dim)[::-1]]
+        g_below = [to_comm(c, mesh) for c in g_bot.split(t, dim)]
+        # Reverse hop order: the gradient of what a rank received at hop
+        # k + 1 goes back to the rank that sent it, where it joins the
+        # gradient of the block that rank received at hop k (or of its own
+        # rows at k = 0). What goes past a global edge is dropped (``_hop``
+        # sends nothing there).
+        down, up = g_above[-1], g_below[-1]
+        for k in range(hops - 1, -1, -1):
+            from_above, from_below = _hop(up, down, mesh)
+            if k:
+                down = from_below + g_above[k - 1]
+                up = from_above + g_below[k - 1]
+        gx = g_mid + (from_below + from_above).to(g.device, g.dtype)
+        return gx, None, None, None, None
+
+
+def _rows(x: torch.Tensor, dim: int, n: int):
+    """The shape of ``x`` with ``n`` rows along ``dim``."""
+    shape = list(x.shape)
+    shape[dim] = n
+    return shape
+
+
+def exchange_rows(x: torch.Tensor, top: int, bottom: int, mesh: GridMesh,
                   dim: int = 1) -> torch.Tensor:
     """Extend the shard ``x`` along ``dim`` with ``top`` rows of the shards
     above and ``bottom`` rows of the shards below (zeros past the global
     edges). Multi-hop when a count exceeds the shard height: each hop
     forwards whole blocks one more rank away, as the JAX ``ppermute`` ring
-    does. Every rank must call it with the same counts."""
+    does. Every rank must call it with the same counts.
+
+    Differentiable: the backward sends the gradient of the received rows
+    back up and down the ring to the ranks that own them, in reverse hop
+    order, and adds it onto the rows they sent. The backward is a
+    point-to-point exchange too, so every rank must take part in it: where
+    one rank's output enters the loss, every rank's must (with a zero
+    gradient where its rows do not matter), or the ranks wait on each
+    other."""
     if top == 0 and bottom == 0:
         return x
-    t = x.shape[dim]
-    hops = max(-(-top // t), -(-bottom // t))
-    down = up = to_comm(x, mesh)
-    above, below = [], []
-    for _ in range(hops):
-        if mesh.size == 1:
-            down, up = torch.zeros_like(down), torch.zeros_like(up)
-        else:
-            down, up = _hop(down, up, mesh)
-        above.insert(0, down)
-        below.append(up)
-    top_rows = torch.cat(above, dim).narrow(dim, hops * t - top, top)
-    bot_rows = torch.cat(below, dim).narrow(dim, 0, bottom)
-    return torch.cat([top_rows.to(x.device, x.dtype), x,
-                      bot_rows.to(x.device, x.dtype)], dim)
+    return _ExchangeRows.apply(x, top, bottom, mesh, dim)
 
 
-def exchange_halo(x: torch.Tensor, halo: int, mesh: SpatialMesh
+def exchange_halo(x: torch.Tensor, halo: int, mesh: GridMesh
                   ) -> torch.Tensor:
     """(N, t, W, C) shard -> (N, t + 2*halo, W, C): ``halo`` rows from each
     ring neighbour, zeros at the global edges (JAX ``exchange_halo``)."""
@@ -131,7 +192,7 @@ def warp_corr_spatial_local(f1: torch.Tensor, f2e: torch.Tensor,
 
 
 def warp_corr_spatial(f1: torch.Tensor, f2: torch.Tensor,
-                      flow: Optional[torch.Tensor], mesh: SpatialMesh, *,
+                      flow: Optional[torch.Tensor], mesh: GridMesh, *,
                       max_displacement: int = 4, halo_rows: int = 16,
                       backend: str = "pallas",
                       fused_min_pixels: Optional[int] = None

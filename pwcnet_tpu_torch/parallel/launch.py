@@ -1,5 +1,5 @@
 """Run jobs in one process per rank on this machine: spatially sharded
-inference, and data-parallel training.
+inference and gradients, and training on a (data, spatial, model) grid.
 
     python -m pwcnet_tpu_torch.parallel.launch RANK WORLD PORT JOB OUT_DIR
 
@@ -10,34 +10,63 @@ starts all ranks, waits for them under one time limit, stops them all if
 one fails, and returns every rank's results.
 
 A job: ``{"backend": "gloo" | "nccl", "device": "cpu" | "cuda" | "cuda:0",
-"threads": int or None, "allow_tf32": bool or None, "tasks": [...]}`` with
-tasks
+"threads": int or None, "allow_tf32": bool or None, "tasks": [...]}``.
+A task's ``"mesh"``, where it takes one, is a dict of ``MeshConfig``
+fields (``{"data": 2, "spatial": 2}``); each task kind has its default.
+Any task may carry ``"patch": {"module.name": "other.module.name"}``:
+while it runs, each named object is replaced by the other (both imported
+by name on the rank, e.g. a function that raises in place of a plain
+version the run must not reach).
+Tasks:
 - ``{"kind": "exchange", "x": (N, H, ...) tensor, "top": int,
-  "bottom": int}``: ``exchange_rows`` of this rank's rows;
+  "bottom": int, "grad": (N, H + S*(top+bottom), ...) tensor or None}``:
+  ``exchange_rows`` of this rank's rows on a spatial mesh of all ranks;
+  with ``grad``, also the gradient of this rank's rows for this rank's
+  block of ``grad``: ``{"out":, "dx":}``;
 - ``{"kind": "forward", "model": PWCNet kwargs, "state_dict": ..., "im1":,
-  "im2": global images, "reps": int, "profile": bool}``: ``spatial_forward``
-  once with the kernel launch counts of that call, then ``reps`` timed
-  calls, then (``profile``) one call under ``torch.profiler``: the host
-  operators that take the most time and the device's busy time;
-- ``{"kind": "mesh", "backend":, "device":}``: the data mesh of all ranks
-  (``make_mesh(MeshConfig(data=WORLD))``, by default with the job's backend
-  and device): its rank, size, device and backend;
+  "im2": global images, "reps": int, "profile": bool, "mesh":}``:
+  ``spatial_forward`` (default mesh: spatial over all ranks) once with the
+  kernel launch counts of that call, then ``reps`` timed calls, then
+  (``profile``) one call under ``torch.profiler``: the host operators that
+  take the most time and the device's busy time;
+- ``{"kind": "grad", "model": PWCNet kwargs, "state_dict":, "im1":,
+  "im2":, "mesh":, "warmup": bool}``: the gradient of the sum over levels and pixels of
+  flow**2 through ``spatial_forward`` (default mesh: spatial over all
+  ranks), each rank's loss on its own rows of the gathered flows: this
+  rank's rows of both images' gradients, the parameters' gradients summed
+  over the spatial axis, the launches of the forward + backward (the plain
+  forward correlation refused on the GPU) and its wall ms (with
+  ``warmup``, of a second run after an uncounted first);
+- ``{"kind": "warp_corr_grad", "f1":, "f2":, "flow": global (N, H, W,
+  ...) tensors, "max_displacement":, "halo_rows":, "backend":,
+  "fused_min_pixels":}``: ``warp_corr_spatial`` of this rank's rows on a
+  spatial mesh of all ranks, and the gradients of this rank's rows of f1
+  and f2 for the sum of its output squared: ``{"out":, "df1":, "df2":}``;
+- ``{"kind": "mesh", "backend":, "device":, "mesh":}``: the grid (default:
+  data over all ranks; by default with the job's backend and device): its
+  world rank and size, device, backend, shape, this rank's data, spatial
+  and model index, and the world ranks of its data and spatial groups;
 - ``{"kind": "train", "cfg": Config, "max_steps": int, "digest": bool,
   "profile": bool}``: ``train_with_state(cfg, max_steps)`` on this rank
-  (the job's device and backend; ``cfg.parallel`` names the group, e.g.
-  ``data=-1``): its final metrics, the kernel launches per step (the run
-  takes ``max_steps`` steps), the wall seconds, and the final parameters
-  (on the CPU), or their SHA-256 with ``digest``; with ``profile``, the
-  run's collective host operators (``torch.profiler``, CPU activity);
+  (the job's device and backend; ``cfg.parallel`` names the grid, e.g.
+  ``data=2, spatial=2``): its final metrics, the kernel launches per step
+  (the run takes ``max_steps`` steps), the wall seconds, and the final
+  parameters (on the CPU), or their SHA-256 with ``digest``; with
+  ``profile``, the run's collective host operators (``torch.profiler``,
+  CPU activity);
 - ``{"kind": "step", "cfg": Config, "state_dict": ..., "batches": [global
-  batches], "aug": bool}``: ``run_steps`` on the data mesh of all ranks;
+  batches], "aug": bool, "mesh":}``: ``run_steps`` on the grid (default:
+  data over all ranks);
 - ``{"kind": "eval", "cfg": Config, "state_dict": ..., "dataset":
-  FlowDataset, "batch": int, "limit": int}``: ``evaluate_dataset`` on the
-  data mesh of all ranks.
+  FlowDataset, "batch": int, "limit": int, "mesh":, "per_sample": bool}``:
+  ``evaluate_dataset`` on the grid (default: data over all ranks); with
+  ``per_sample``, ``{"result":, "per_sample":}``, the eval step's
+  per-sample rows of every batch as every rank gathers them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import socket
@@ -94,7 +123,7 @@ def run_steps(cfg, state_dict: dict, batches: List[dict], mesh=None,
               aug: bool = False, device="cpu") -> dict:
     """``make_train_step`` of ``cfg`` (model, optimizer, loss, clipping,
     ``cfg.data.augment`` when ``aug``) from ``state_dict``, one step per
-    global batch: on a data ``mesh``, this rank's rows on the mesh's
+    global batch: on a ``mesh``, this rank's data row's rows on the mesh's
     device; without one, the whole batch on ``device``. Returns the
     metrics and the gradients of each step, and the final parameters and
     the generator's state, on the CPU."""
@@ -129,8 +158,75 @@ def _eval(task: dict, mesh) -> dict:
     from pwcnet_tpu_torch.train.loop import build_model
     model = build_model(task["cfg"], mesh.device).eval()
     model.load_state_dict(task["state_dict"])
-    return evaluate_dataset(model, task["dataset"], batch=task["batch"],
-                            limit=task.get("limit"), mesh=mesh)
+    out = evaluate_dataset(model, task["dataset"], batch=task["batch"],
+                           limit=task.get("limit"), mesh=mesh,
+                           return_per_sample=bool(task.get("per_sample")))
+    if not task.get("per_sample"):
+        return out
+    return {"result": out[0], "per_sample": out[1]}
+
+
+def _grad(task: dict, mesh) -> dict:
+    """The ``grad`` task (see the module docstring)."""
+    from pwcnet_tpu_torch import PWCNet
+    from pwcnet_tpu_torch.parallel.spatial import shard_rows, spatial_forward
+    from pwcnet_tpu_torch.parallel.spatial_ops import all_reduce_sum
+    sm = mesh.spatial_mesh
+    model = PWCNet(device=mesh.device, **task["model"])
+    model.load_state_dict(task["state_dict"])
+    # Copies: the tasks of a job may share their image tensors.
+    im1, im2 = (torch.as_tensor(task[k]).to(mesh.device, copy=True)
+                .requires_grad_() for k in ("im1", "im2"))
+    for _ in range(1 + bool(task.get("warmup"))):  # the last one counts
+        for t in (im1, im2, *model.parameters()):
+            t.grad = None
+        _sync(mesh.device)
+        _reset_launches()
+        t0 = time.perf_counter()
+        flows, _ = spatial_forward(model, sm, im1, im2)
+        loss = sum((shard_rows(f, sm) ** 2).sum() for f in flows)
+        loss.backward()
+        _sync(mesh.device)
+        wall = (time.perf_counter() - t0) * 1e3
+    launches = _launches()
+    return {"loss": loss.item(), "launches": launches, "wall_ms": wall,
+            "im1": shard_rows(im1.grad, sm).cpu().clone(),
+            "im2": shard_rows(im2.grad, sm).cpu().clone(),
+            "params": {n: all_reduce_sum(p.grad, sm).cpu()
+                       for n, p in model.named_parameters()}}
+
+
+def _warp_corr_grad(task: dict, sm) -> dict:
+    """The ``warp_corr_grad`` task (see the module docstring)."""
+    from pwcnet_tpu_torch.parallel.halo import warp_corr_spatial
+    from pwcnet_tpu_torch.parallel.spatial import shard_rows
+    f1, f2 = (shard_rows(task[k], sm).to(sm.device, copy=True)
+              .requires_grad_() for k in ("f1", "f2"))
+    flow = shard_rows(task["flow"], sm).to(sm.device)
+    out = warp_corr_spatial(
+        f1, f2, flow, sm, max_displacement=task["max_displacement"],
+        halo_rows=task["halo_rows"], backend=task["backend"],
+        fused_min_pixels=task.get("fused_min_pixels"))
+    (out ** 2).sum().backward()
+    return {"out": out.detach().cpu(), "df1": f1.grad.cpu(),
+            "df2": f2.grad.cpu()}
+
+
+@contextlib.contextmanager
+def _patched(names: dict):
+    """While open, each object named by a key of ``names`` (a dotted
+    path) is the object named by its value."""
+    import importlib
+    from unittest import mock
+
+    def resolve(name: str):
+        module, _, attr = name.rpartition(".")
+        return getattr(importlib.import_module(module), attr)
+
+    with contextlib.ExitStack() as stack:
+        for target, new in names.items():
+            stack.enter_context(mock.patch(target, resolve(new)))
+        yield
 
 
 def _train(task: dict, job: dict) -> dict:
@@ -226,11 +322,9 @@ def _profile(run, sync, mesh) -> dict:
 
 def worker(rank: int, world: int, port: int, job_path: str,
            out_dir: str) -> None:
-    from pwcnet_tpu_torch.parallel.halo import exchange_rows
     from pwcnet_tpu_torch.parallel.mesh import (MeshConfig,
                                                 initialize_distributed,
                                                 make_mesh)
-    from pwcnet_tpu_torch.parallel.spatial import shard_rows
     job = torch.load(job_path, weights_only=False)
     if job.get("threads"):
         torch.set_num_threads(job["threads"])
@@ -240,46 +334,66 @@ def worker(rank: int, world: int, port: int, job_path: str,
     initialize_distributed(f"localhost:{port}", world, rank, job["backend"])
     meshes = {}
 
-    def mesh(axis: str):
-        if axis not in meshes:
-            cfg = (MeshConfig(data=world) if axis == "data"
-                   else MeshConfig(data=1, spatial=world))
-            meshes[axis] = make_mesh(cfg, backend=job["backend"],
-                                     device=job["device"])
-        return meshes[axis]
+    def mesh(task: dict, default: dict):
+        """The task's grid (its "mesh", else ``default``), made once."""
+        key = tuple(sorted(task.get("mesh", default).items()))
+        if key not in meshes:
+            meshes[key] = make_mesh(MeshConfig(**dict(key)),
+                                    backend=job["backend"],
+                                    device=job["device"])
+        return meshes[key]
 
     try:
         results = []
         for task in job["tasks"]:
-            kind = task["kind"]
-            if kind == "exchange":
-                m = mesh("spatial")
-                x = shard_rows(task["x"], m).to(m.device)
-                results.append(exchange_rows(x, task["top"], task["bottom"],
-                                             m).cpu())
-            elif kind == "forward":
-                results.append(_forward(task, mesh("spatial")))
-            elif kind == "mesh":
-                m = make_mesh(MeshConfig(data=world),
-                              backend=task.get("backend", job["backend"]),
-                              device=task.get("device", job["device"]))
-                results.append({"rank": m.rank, "size": m.size,
-                                "device": str(m.device),
-                                "backend": m.backend})
-            elif kind == "train":
-                results.append(_train(task, job))
-            elif kind == "step":
-                results.append(run_steps(task["cfg"], task["state_dict"],
-                                         task["batches"], mesh("data"),
-                                         task.get("aug", False)))
-            elif kind == "eval":
-                results.append(_eval(task, mesh("data")))
-            else:
-                raise ValueError(f"unknown task kind {kind!r}")
+            with _patched(task.get("patch", {})):
+                results.append(_task(task, job, mesh, world))
         torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def _task(task: dict, job: dict, mesh, world: int):
+    """One task's result (see the module docstring); ``mesh(task,
+    default)`` is the task's grid."""
+    from pwcnet_tpu_torch.parallel.halo import exchange_rows
+    from pwcnet_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from pwcnet_tpu_torch.parallel.spatial import shard_rows
+    spatial_all = dict(data=1, spatial=world)
+    kind = task["kind"]
+    if kind == "exchange":
+        m = mesh(task, spatial_all).spatial_mesh
+        x = shard_rows(task["x"], m).to(m.device)
+        if task.get("grad") is None:
+            return exchange_rows(x, task["top"], task["bottom"], m).cpu()
+        x = x.clone().requires_grad_()
+        out = exchange_rows(x, task["top"], task["bottom"], m)
+        out.backward(shard_rows(task["grad"], m).to(m.device))
+        return {"out": out.detach().cpu(), "dx": x.grad.cpu()}
+    if kind == "forward":
+        return _forward(task, mesh(task, spatial_all))
+    if kind == "grad":
+        return _grad(task, mesh(task, spatial_all))
+    if kind == "warp_corr_grad":
+        return _warp_corr_grad(task, mesh(task, spatial_all).spatial_mesh)
+    if kind == "mesh":
+        m = make_mesh(MeshConfig(**task.get("mesh", dict(data=world))),
+                      backend=task.get("backend", job["backend"]),
+                      device=task.get("device", job["device"]))
+        return {"rank": m.rank, "size": m.size, "device": str(m.device),
+                "backend": m.backend, "shape": m.shape,
+                "index": (m.data_index, m.spatial_index, m.model_index),
+                "data_ranks": m.data_ranks,
+                "spatial_ranks": m.spatial_ranks}
+    if kind == "train":
+        return _train(task, job)
+    if kind == "step":
+        return run_steps(task["cfg"], task["state_dict"], task["batches"],
+                         mesh(task, dict(data=world)), task.get("aug", False))
+    if kind == "eval":
+        return _eval(task, mesh(task, dict(data=world)))
+    raise ValueError(f"unknown task kind {kind!r}")
 
 
 def free_port() -> int:

@@ -6,7 +6,7 @@ supervision scale, crop), for PWC-Net and RAFT."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -15,7 +15,7 @@ from pwcnet_tpu_torch.data.base import FlowDataset
 from pwcnet_tpu_torch.data.pipeline import eval_batches
 from pwcnet_tpu_torch.models.pwcnet import PWCNet
 from pwcnet_tpu_torch.models.raft import RAFT
-from pwcnet_tpu_torch.parallel.mesh import (ProcessMesh, local_batch_size,
+from pwcnet_tpu_torch.parallel.mesh import (GridMesh, local_batch_size,
                                             shard_batch)
 from pwcnet_tpu_torch.train.step import make_eval_step
 
@@ -48,14 +48,19 @@ def predict_flow(model: Union[PWCNet, RAFT], im1: np.ndarray,
 
 def evaluate_dataset(model: Union[PWCNet, RAFT], dataset: FlowDataset,
                      batch: int = 4, limit: Optional[int] = None,
-                     mesh: Optional[ProcessMesh] = None) -> Dict[str, float]:
+                     mesh: Optional[GridMesh] = None,
+                     return_per_sample: bool = False):
     """Mean EPE and Fl-all (%) over the first ``limit`` samples, masked by
     validity (padding is invalid), with the EPE by GT magnitude and the
-    per-sample means and standard errors: the JAX function's keys.
+    per-sample means and standard errors: the JAX function's keys. With
+    ``return_per_sample``, ``(that dict, rows)``: the eval step's (B, 8)
+    per-sample rows of every batch in order, on the CPU, the last batch's
+    filler rows (all zero) included.
 
-    Under a data ``mesh`` every rank calls this; each evaluates its rows of
-    each eval batch of ``batch`` pairs (which must divide over the ranks),
-    and every rank returns the same dict. The sums stay on the model's
+    Under a ``mesh`` every rank calls this; each evaluates its data row's
+    rows of each eval batch of ``batch`` pairs (which must divide over the
+    data axis; the spatial and model replicas of a data row evaluate the
+    same rows, counted once), and every rank returns the same dict. The sums stay on the model's
     device and are fetched once at the end.
     """
     local_batch_size(batch, mesh)
@@ -69,7 +74,8 @@ def evaluate_dataset(model: Union[PWCNet, RAFT], dataset: FlowDataset,
         totals = out[:4] if totals is None else tuple(
             t + o for t, o in zip(totals, out[:4]))
     num, outl, den, bins = (t.double().cpu().numpy() for t in totals)
-    ps = torch.cat(samples).double().cpu().numpy()
+    rows = torch.cat(samples).cpu()
+    ps = rows.double().numpy()
     num, outl, den = float(num), float(outl), max(float(den), 1.0)
     res = {"epe": num / den, "fl_all": 100.0 * outl / den,
            "num_valid_px": den}
@@ -89,4 +95,4 @@ def evaluate_dataset(model: Union[PWCNet, RAFT], dataset: FlowDataset,
         res[f"{name}_sample_mean"] = float(vals.mean())
         res[f"{name}_sample_stderr"] = float(
             vals.std(ddof=1) / np.sqrt(len(vals))) if len(vals) > 1 else 0.0
-    return res
+    return (res, rows) if return_per_sample else res

@@ -1,10 +1,11 @@
 """The trainer (counterpart of ``pwcnet_tpu/train/loop.py``) for PWC-Net
-and RAFT, on one device or data-parallel over several processes.
+and RAFT, on one device or over a (data, spatial, model) grid of processes.
 
 ``train(cfg, max_steps, device=None, backend=None)`` joins the process
 group that ``cfg.parallel`` names (``initialize_distributed``: JAX's
 ``coordinator`` / ``num_processes`` / ``process_id``, or ``torchrun``'s
-environment), makes the mesh, builds the model and optimizer,
+environment), makes the mesh (``parallel.data``, ``parallel.spatial``,
+``parallel.model``), builds the model and optimizer,
 resumes from the latest checkpoint under ``<log_dir>/ckpt``, and runs the
 steps on batches of the config's dataset: for the file datasets (and
 ``synthetic`` without ``device_gen``) from the host ``Loader``, copied to
@@ -16,17 +17,18 @@ the dataset has one (``val_epe``, ``val_fl_all``, ``val_epe_s*``, and flow
 images of one val sample), and checkpoints every ``checkpoint_interval``
 steps and at the end. ``train.debug_nans`` raises ``FloatingPointError``
 where a NaN appears (``nan_checks``); ``train.profile_dir`` traces the run
-with ``torch.profiler``. It runs on the GPU unless ``device="cpu"``. What
-the config asks for and the port does not have yet raises
-``NotImplementedError`` naming its ROADMAP item.
+with ``torch.profiler``. It runs on the GPU unless ``device="cpu"``.
 
-Under a data mesh of N processes (one per card under ``nccl``; several may
-share a card under ``gloo``) each rank trains on its rows of every global
-batch: the Loader's rows of the process, or the device batcher's rows of
-the rank. Metrics are the ranks' means; process 0 alone writes the metrics,
-the eval images, the profile and the checkpoints, and every rank resumes
-from the same checkpoint. A lone process on a machine with several cards
-trains on one card and logs how to start one rank per card.
+On a grid of N processes (one per card under ``nccl``; several may share a
+card under ``gloo``) each rank trains on its data row's rows of every
+global batch: the Loader's rows of the data index, or the device batcher's.
+As in JAX's trainer, the model is not sharded over ``spatial`` or
+``model``: the ranks of one data row are replicas that compute the same
+step (``train/step.py``). Metrics are the data rows' means; process 0
+alone writes the metrics, the eval images, the profile and the
+checkpoints, and every rank resumes from the same checkpoint. A lone
+process on a machine with several cards trains on one card and logs how to
+start one rank per card.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from pwcnet_tpu_torch.data.pipeline import Loader
 from pwcnet_tpu_torch.data.synthetic import make_device_batcher
 from pwcnet_tpu_torch.models.pwcnet import PWCNet, _resolve_device
 from pwcnet_tpu_torch.models.raft import RAFT
-from pwcnet_tpu_torch.parallel.mesh import (MeshConfig, ProcessMesh,
+from pwcnet_tpu_torch.parallel.mesh import (GridMesh, MeshConfig,
                                             initialize_distributed, make_mesh,
                                             process_count, process_index)
 from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
@@ -90,18 +92,7 @@ def build_model(cfg: Config, device=None) -> Union[PWCNet, RAFT]:
         generator=generator)
 
 
-def _check_ported(cfg: Config) -> None:
-    """Raise for what the config needs and the port does not have."""
-    p = cfg.parallel
-    if p.spatial > 1:
-        raise NotImplementedError("training across spatial shards needs the "
-                                  "halo exchange's backward (ROADMAP A7); "
-                                  "the spatial path runs inference only")
-    if p.model > 1:
-        raise NotImplementedError("the model axis is reserved and must be 1")
-
-
-def _log_idle_cards(cfg: Config, mesh: ProcessMesh) -> None:
+def _log_idle_cards(cfg: Config, mesh: GridMesh) -> None:
     """A lone process on a machine with several cards trains on one of
     them; say so once, with how to start one rank per card."""
     n = torch.cuda.device_count() if mesh.device.type == "cuda" else 1
@@ -163,7 +154,7 @@ def to_device(batch: Dict[str, np.ndarray], dev: torch.device
 
 def _evaluate(cfg: Config, model, val_ds, writer: MetricsWriter,
               step: int, final: dict, failures: list,
-              mesh: ProcessMesh) -> None:
+              mesh: GridMesh) -> None:
     """The periodic eval on every rank: val metrics into the log and
     ``final``, then (process 0) flow images of val sample 0 (a failure
     there is logged once per run, counted in ``failures``, and training
@@ -193,8 +184,8 @@ def _evaluate(cfg: Config, model, val_ds, writer: MetricsWriter,
 def train(cfg: Config, max_steps: Optional[int] = None, device=None,
           backend: Optional[str] = None) -> dict:
     """Train per ``cfg``; returns the last summary's metrics and ``step``.
-    ``backend`` is the collective backend of a data mesh: None means
-    ``"nccl"`` on CUDA and ``"gloo"`` on the CPU."""
+    ``backend`` is the collective backend of a mesh of several processes:
+    None means ``"nccl"`` on CUDA and ``"gloo"`` on the CPU."""
     return train_with_state(cfg, max_steps, device, backend)[0]
 
 
@@ -202,7 +193,6 @@ def train_with_state(cfg: Config, max_steps: Optional[int] = None,
                      device=None, backend: Optional[str] = None
                      ) -> Tuple[dict, TrainState]:
     """``train``, also returning the final ``TrainState``."""
-    _check_ported(cfg)
     dev = _resolve_device(device)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -243,7 +233,7 @@ def train_with_state(cfg: Config, max_steps: Optional[int] = None,
                              **ds_kw)
     except (FileNotFoundError, ValueError):
         val_ds = None  # no val split: no periodic eval
-    # Under a data mesh DDP broadcasts rank 0's weights here.
+    # Under a mesh DDP broadcasts rank 0's weights here.
     step_fn = make_train_step(model, optimizer, scheduler,
                               loss_kind=cfg.train.loss,
                               level_weights=cfg.train.level_weights,
@@ -270,8 +260,9 @@ def train_with_state(cfg: Config, max_steps: Optional[int] = None,
                             sample_hw=cfg.data.sample_hw,
                             seed=cfg.train.seed,
                             num_threads=cfg.data.num_threads,
-                            start_step=start, process_index=mesh.rank,
-                            process_count=mesh.size)
+                            start_step=start,
+                            process_index=mesh.data_mesh.rank,
+                            process_count=mesh.data_mesh.size)
         if cfg.train.profile_dir and process_index() == 0:
             from torch.profiler import (ProfilerActivity, profile,
                                         tensorboard_trace_handler)

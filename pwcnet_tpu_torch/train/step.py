@@ -1,5 +1,6 @@
 """The train and eval steps (counterpart of ``pwcnet_tpu/train/step.py``),
-for PWC-Net and RAFT, on one process or data-parallel over a ``DataMesh``.
+for PWC-Net and RAFT, on one process or over a (data, spatial, model) grid
+of processes (``parallel/mesh.py:GridMesh``).
 
 A train step is forward, loss, ``backward()`` (through the kernels' autograd
 Functions on the GPU), optional clipping, the optimizer update and one
@@ -13,14 +14,18 @@ RAFT's pixels at their resolution times the image's H over theirs) and
 They stay on the device as 0-d tensors; the caller reads them when it
 needs them.
 
-Under a data mesh of more than one process each rank steps on its rows of
-the global batch, as JAX's ``shard_map`` step does: the model runs under
-``DistributedDataParallel``, which averages the gradients before the
-clipping and the update (JAX's ``pmean`` of the grads), ``grad_norm`` is
-the norm of the averaged gradients, and ``loss`` and ``train_epe`` are the
-ranks' means. The augmentation draws from ``fold_in(state.generator,
-rank)``. The eval step sums over the ranks and gathers ``per_sample`` in
-rank order.
+On a grid of more than one process each rank steps on its data row's rows
+of the global batch, as JAX's ``shard_map`` step does with ``in_specs=(P(),
+P(DATA_AXIS))``: the ranks of one data row (its spatial and model
+replicas) compute the same step on the same rows, with the model
+unsharded. The model runs under ``DistributedDataParallel`` over the whole
+world, which averages the gradients before the clipping and the update:
+with identical replicas the world mean is JAX's ``pmean`` over ``data``.
+``grad_norm`` is the norm of the averaged gradients, and ``loss`` and
+``train_epe`` are the world's means (the data rows' means). The
+augmentation draws from ``fold_in(state.generator, data index)``. The eval
+step sums over the data axis only and gathers ``per_sample`` in data
+order, so no sample is counted twice.
 """
 
 from __future__ import annotations
@@ -28,7 +33,6 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from pwcnet_tpu_torch.config import AugmentConfig
@@ -36,15 +40,15 @@ from pwcnet_tpu_torch.data.augment import augment_batch, fold_in
 from pwcnet_tpu_torch.losses import (LEVEL_WEIGHTS, downsample_gt, epe,
                                      fl_outliers, multiscale_loss,
                                      robust_loss, sequence_loss)
-from pwcnet_tpu_torch.parallel.halo import to_comm
-from pwcnet_tpu_torch.parallel.mesh import ProcessMesh
-from pwcnet_tpu_torch.parallel.spatial_ops import all_reduce_sum
+from pwcnet_tpu_torch.parallel.mesh import GridMesh
+from pwcnet_tpu_torch.parallel.spatial_ops import (all_gather_rows,
+                                                   all_reduce_sum)
 from pwcnet_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
 
 
-def _distributed(mesh: Optional[ProcessMesh]) -> bool:
+def _distributed(mesh: Optional[GridMesh]) -> bool:
     return mesh is not None and mesh.size > 1
 
 
@@ -71,15 +75,16 @@ def make_train_step(model, optimizer, scheduler,
                     level_weights: Optional[Sequence[float]] = None,
                     grad_clip: float = 0.0,
                     aug: Optional[AugmentConfig] = None,
-                    mesh: Optional[ProcessMesh] = None
+                    mesh: Optional[GridMesh] = None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch) -> (state, metrics)``; ``batch`` holds f32 im1,
     im2 (N, H, W, 3), flow (N, H, W, 2) and valid (N, H, W) on the model's
-    device: this rank's rows under a data ``mesh``. With ``aug``, the step
-    first augments the batch: the scalars drawn on ``state.generator``
-    (CPU; under a mesh on ``fold_in`` of it and the rank), the noise on the
-    model's device from a generator seeded by a draw of the same, so a
+    device: this rank's data row's rows under a ``mesh``. With ``aug``,
+    the step first augments the batch: the scalars drawn on
+    ``state.generator`` (CPU; under a mesh on ``fold_in`` of it and the
+    rank's data index, so a data row's replicas draw alike), the noise on
+    the model's device from a generator seeded by a draw of the same, so a
     restored state replays the augmentation. ``state`` is advanced in place
     and returned. Under a mesh, ``DistributedDataParallel`` broadcasts
     rank 0's parameters when the step is made."""
@@ -87,15 +92,21 @@ def make_train_step(model, optimizer, scheduler,
     params = [p for p in model.parameters() if p.requires_grad]
     noise_gen = torch.Generator(device=model.device) if aug else None
     distributed = _distributed(mesh)
-    # No model holds a buffer that changes, so none is broadcast per step.
+    # DDP over the world, not the data group: the replicas of a data row
+    # are meant to be identical, so the world mean is the data mean, and
+    # every rank then applies the same averaged gradients. That keeps all
+    # replicas' parameters identical even where cuDNN's non-deterministic
+    # weight gradients make one replica's backward differ from another's
+    # in its last bits. No model holds a buffer that changes, so none is
+    # broadcast per step.
     net = DistributedDataParallel(
         model, process_group=mesh.group, broadcast_buffers=False
     ) if distributed else model
 
     def step(state: TrainState, batch: Batch):
         if aug is not None:
-            gen = (fold_in(state.generator, mesh.rank) if distributed
-                   else state.generator)
+            gen = (fold_in(state.generator, mesh.data_mesh.rank)
+                   if distributed else state.generator)
             batch = augment_batch(batch, gen, aug, noise_gen)
         optimizer.zero_grad(set_to_none=True)
         if loss_fn is None:  # the sequence loss inside RAFT's loop
@@ -104,7 +115,7 @@ def make_train_step(model, optimizer, scheduler,
         else:
             flows = net(batch["im1"], batch["im2"])
             loss = loss_fn(flows, batch["flow"], batch["valid"])
-        loss.backward()  # under DDP: the gradients averaged over the ranks
+        loss.backward()  # under DDP: the gradients averaged over the world
         grads = [p.grad for p in params if p.grad is not None]
         grad_norm = torch.linalg.vector_norm(
             torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -124,7 +135,7 @@ def make_train_step(model, optimizer, scheduler,
                 valid=batch["valid"])
             train_epe = epe(finest * to_px, gt_small, v_small)
             loss = loss.detach()
-            if distributed:  # gloo has no AVG: one SUM, then divide
+            if distributed:  # the world's mean; gloo has no AVG: SUM, divide
                 loss, train_epe = all_reduce_sum(
                     torch.stack([loss.float(), train_epe.float()]),
                     mesh) / mesh.size
@@ -138,7 +149,7 @@ def make_train_step(model, optimizer, scheduler,
 EPE_MAG_BINS = (10.0, 40.0)
 
 
-def make_eval_step(model, mesh: Optional[ProcessMesh] = None
+def make_eval_step(model, mesh: Optional[GridMesh] = None
                    ) -> Callable[[Batch], Tuple[torch.Tensor, ...]]:
     """``eval(batch) -> (sum_epe, sum_outliers, num_valid, bins,
     per_sample)`` on a batch already padded to the model's divisor, as the
@@ -146,9 +157,13 @@ def make_eval_step(model, mesh: Optional[ProcessMesh] = None
     > 5% of |GT|); ``bins`` (2, 3) holds the EPE sums and valid counts over
     |GT| in [0, 10), [10, 40), [40, inf) px; ``per_sample`` (B, 8) the same
     per sample: [epe sum, valid count, 3 bin EPE sums, 3 bin counts]. Under
-    a data ``mesh`` the batch is this rank's rows; the sums are summed over
-    the ranks (one collective) and ``per_sample`` gathered in rank order,
-    so every rank returns the global batch's values."""
+    a ``mesh`` the batch is this rank's data row's rows, and the model runs
+    unsharded on them; the sums are summed over the data axis only (one
+    collective; a spatial or model replica holds the same rows, and summing
+    over the world would count each sample S * M times) and ``per_sample``
+    gathered in data order, so every rank returns the global batch's
+    values."""
+    data = None if mesh is None else mesh.data_mesh
 
     @torch.no_grad()
     def step(batch: Batch):
@@ -170,14 +185,11 @@ def make_eval_step(model, mesh: Optional[ProcessMesh] = None
             torch.stack([(dist_px * m).sum(axes) for m in masks], 1),
             torch.stack([m.sum(axes) for m in masks], 1)], 1)
         sums = ((dist_px * v).sum(), (outlier * v).sum(), v.sum(), bins)
-        if not _distributed(mesh):
+        if not _distributed(data):
             return (*sums, per_sample)
         flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in sums]),
-                              mesh)
-        buf = to_comm(per_sample, mesh)
-        parts = [torch.empty_like(buf) for _ in range(mesh.size)]
-        dist.all_gather(parts, buf, group=mesh.group)
+                              data)
         return (flat[0], flat[1], flat[2], flat[3:].view(2, 3),
-                torch.cat(parts).to(per_sample.device))
+                all_gather_rows(per_sample[None], data)[0])
 
     return step

@@ -1,5 +1,5 @@
 """The port's data parallelism (``DistributedDataParallel`` over a
-``DataMesh``) held against one process and against the JAX package's
+grid's data axis) held against one process and against the JAX package's
 2-device mesh step, on the CPU.
 
 The ranks are two ``gloo`` worker processes
@@ -47,7 +47,7 @@ from pwcnet_tpu_torch.data.augment import (augment_batch, draw_augment_params,
                                            fold_in)
 from pwcnet_tpu_torch.data.synthetic import SyntheticFlow, make_device_batcher
 from pwcnet_tpu_torch.parallel import mesh as mesh_mod
-from pwcnet_tpu_torch.parallel import (DataMesh, MeshConfig,
+from pwcnet_tpu_torch.parallel import (GridMesh, MeshConfig,
                                        initialize_distributed,
                                        local_batch_size, make_mesh,
                                        shard_batch)
@@ -326,7 +326,7 @@ def test_evaluate_dataset_on_two_ranks_equals_one_process(setup, ranks,
 def _fake_mesh(rank):
     """A data mesh of WORLD ranks without a process group: enough for what
     reads only the rank and the size."""
-    return DataMesh(None, rank, WORLD, torch.device("cpu"), "gloo")
+    return GridMesh.line(0, None, rank, WORLD, "cpu", "gloo")
 
 
 def test_shard_batch_and_local_batch_size():
@@ -371,8 +371,9 @@ def test_nccl_refuses_two_ranks_on_one_card(tmp_path):
 def test_mesh_and_process_group_arguments(monkeypatch):
     with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh(MeshConfig(data=2), backend="gloo", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_mesh(MeshConfig(data=2, spatial=2), device="cpu")
+    with pytest.raises(ValueError, match="needs 4 processes"):
+        make_mesh(MeshConfig(data=2, spatial=2), backend="gloo",
+                  device="cpu")
     with pytest.raises(ValueError, match="coordinator"):
         initialize_distributed(None, 2, None)
     with pytest.raises(ValueError, match="backend"):
@@ -387,7 +388,7 @@ def test_mesh_and_process_group_arguments(monkeypatch):
 
 def test_a_lone_process_says_how_to_use_idle_cards(monkeypatch, caplog):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    lone = mesh_mod.SpatialMesh(None, 0, 1, torch.device("cuda", 0), None)
+    lone = mesh_mod.GridMesh(None, 0, 1, torch.device("cuda", 0), None)
     with caplog.at_level(logging.WARNING):
         _log_idle_cards(_cfg(), lone)
     assert "leaves 3 of this machine's 4 cards idle" in caplog.text

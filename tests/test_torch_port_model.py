@@ -111,13 +111,18 @@ def test_forward_rejects_non_divisible_size():
 
 
 @pytest.mark.parametrize("kwargs", [
-    # The spatial path is ported (tests/test_torch_port_spatial.py), but
-    # only with half-pixel upsampling. GroupNorm (use_norm) is ported:
-    # tests/test_torch_port_norm.py.
+    # The spatial path is ported with both resize modes
+    # (tests/test_torch_port_spatial.py, tests/test_torch_port_grid.py);
+    # GroupNorm (use_norm) is ported: tests/test_torch_port_norm.py. What
+    # raised before constructs now; a resize mode that neither package has
+    # raises.
     dict(spatial_axis="spatial", resize_mode="align_corners")])
 def test_unported_options_raise(kwargs):
-    with pytest.raises(NotImplementedError):
-        PWCNet(device="cpu", **kwargs)
+    model = PWCNet(device="cpu", **kwargs)
+    assert (model.spatial_axis, model.resize_mode) == (
+        kwargs["spatial_axis"], kwargs["resize_mode"])
+    with pytest.raises(ValueError, match="resize_mode"):
+        PWCNet(device="cpu", **dict(kwargs, resize_mode="nearest"))
 
 
 def test_fused_backend_constructs_and_dispatches(monkeypatch):

@@ -38,7 +38,7 @@ from pwcnet_tpu_torch.ops.kernels.stem_kernel import stem_ref
 from pwcnet_tpu_torch.ops.resize import resize_bilinear
 from pwcnet_tpu_torch.ops.warp import (warp_bilinear, warp_ext_corners_ref,
                                        warp_ext_ref)
-from pwcnet_tpu_torch.parallel import (MeshConfig, SpatialMesh, make_mesh,
+from pwcnet_tpu_torch.parallel import (GridMesh, MeshConfig, make_mesh,
                                        pad_for_spatial, required_divisor,
                                        spatial_forward,
                                        warp_corr_spatial_local)
@@ -405,7 +405,7 @@ def test_pad_for_spatial_matches_jax(s):
     """A Sintel frame (436 x 1024) pads as the JAX package pads it:
     512 x 1024 under 2 and 4 shards (448 under one: the divisor is 64)."""
     model = PWCNet(device="cpu")
-    mesh = SpatialMesh(None, 0, s, torch.device("cpu"), None)
+    mesh = GridMesh.line(1, None, 0, s, "cpu", None)
     jmesh = jax_make_mesh(JaxMeshConfig(data=1, spatial=s))
     img = np.zeros((1, 436, 1024, 3), np.float32)
     got, hw = pad_for_spatial(img, model, mesh)
@@ -425,14 +425,22 @@ def test_spatial_forward_rejects_indivisible_height():
 
 
 def test_mesh_and_model_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_mesh(MeshConfig(data=2, spatial=2), device="cpu")
+    """The (data, spatial) grid builds (one process: a grid of one; the
+    2x2 grid on four ranks is tests/test_torch_port_grid.py's), a grid of
+    more processes than the group has is refused, and the spatial model
+    takes align_corners."""
+    grid = make_mesh(MeshConfig(data=1, spatial=1), device="cpu")
+    assert (grid.shape, grid.size, grid.data_mesh.size,
+            grid.spatial_mesh.size) == ((1, 1, 1), 1, 1, 1)
+    with pytest.raises(ValueError, match="needs 4 processes"):
+        make_mesh(MeshConfig(data=2, spatial=2), backend="gloo",
+                  device="cpu")
     with pytest.raises(ValueError, match="needs 2 processes"):
         make_mesh(MeshConfig(data=1, spatial=2), backend="gloo",
                   device="cpu")
-    with pytest.raises(NotImplementedError):
-        PWCNet(device="cpu", spatial_axis="spatial",
-               resize_mode="align_corners")
+    aligned = PWCNet(device="cpu", spatial_axis="spatial",
+                     resize_mode="align_corners")
+    assert aligned.resize_mode == "align_corners"
     model = PWCNet(device="cpu", spatial_axis="spatial", spatial_halo=4)
     assert (model.spatial_axis, model.spatial_halo) == ("spatial", 4)
     im = torch.zeros(1, 64, 64, 3)

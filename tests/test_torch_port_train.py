@@ -417,28 +417,32 @@ def _changed(cfg, change):
 
 
 @pytest.mark.parametrize("change", [
-    # Data parallelism is ported (tests/test_torch_port_ddp.py); with the
-    # spatial axis it is not, and neither is training across spatial shards
-    # (refused before any process group is joined).
-    dict(parallel=dict(data=2, spatial=2)),
-    dict(parallel=dict(spatial=2)),
-    dict(parallel=dict(spatial=2, num_processes=2, process_id=0,
-                       coordinator="localhost:1")),
+    # Training on the (data, spatial, model) grid is ported
+    # (tests/test_torch_port_grid.py). One process cannot be a grid of
+    # more, and train() says what the grid needs before it joins a
+    # process group.
+    dict(parallel=dict(data=2, spatial=2), match="needs 4 processes"),
+    dict(parallel=dict(spatial=2), match="1 processes not divisible"),
+    dict(parallel=dict(spatial=2, num_processes=2, process_id=0),
+         match="coordinator"),
 ])
 def test_train_raises_for_what_is_not_ported(tmp_path, change):
+    change = dict(change)
+    match = change.pop("match")
     cfg = _changed(_tiny_cfg(tmp_path), change)
-    with pytest.raises(NotImplementedError, match="ROADMAP A[5-9]"):
+    with pytest.raises(ValueError, match=match):
         train(cfg, max_steps=3, device="cpu")
 
 
 @pytest.mark.parametrize("change, error, match", [
     (dict(parallel=dict(data=2)), ValueError, "needs 2 processes"),
     (dict(parallel=dict(num_processes=2)), ValueError, "coordinator"),
-    (dict(parallel=dict(model=2)), NotImplementedError, "model axis"),
+    (dict(parallel=dict(model=2)), ValueError,
+     r"not divisible by spatial\*model=2"),
 ])
 def test_train_refuses_a_mesh_it_cannot_form(tmp_path, change, error, match):
     """One process cannot be a data mesh of two; more processes need the
-    coordinator; the model axis is reserved."""
+    coordinator; nor can it be two replicas along the model axis."""
     cfg = _changed(_tiny_cfg(tmp_path), change)
     with pytest.raises(error, match=match):
         train(cfg, max_steps=1, device="cpu")
