@@ -16,7 +16,12 @@ replay those bits. So the port splits the work in two:
   batch on any device given those scalars and the noise (a tensor, or a
   generator on the batch's device to draw it from).
 
-``augment_batch`` is the two together. Under data parallelism each rank
+``augment_batch`` is the two together, split where a captured train step
+(``capture.py``) begins its graph: ``draw_augment`` makes both draws (the
+scalars on the CPU generator, the noise as one ``randn`` on the device
+generator reseeded from them), and ``augment_device`` is the transform of
+device tensors that the graph holds. The train step calls the two itself,
+captured or not. Under data parallelism each rank
 draws from ``fold_in(generator, rank)`` (JAX folds the data-axis index into
 the step's key), so the ranks augment their rows differently while the
 shared generator stays in step. The transform follows JAX's order
@@ -94,16 +99,25 @@ def fold_in(generator: torch.Generator, index: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed))
 
 
+def _randn(generator: torch.Generator, n: int, cfg: AugmentConfig,
+           device) -> torch.Tensor:
+    return torch.randn((2, n, *cfg.crop_hw, 3), generator=generator,
+                       device=device)
+
+
+def _mix_noise(z: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """Frame 2's noise is frame 1's where the sample's draw is symmetric."""
+    asym = params[:, ASYM].to(z.device).view(-1, 1, 1, 1) > 0
+    return torch.stack([z[0], torch.where(asym, z[1], z[0])])
+
+
 def draw_noise(generator: torch.Generator, params: torch.Tensor,
                cfg: AugmentConfig, device) -> torch.Tensor:
     """Standard normal noise (2, n, th, tw, 3) on ``device`` from
     ``generator`` (on that device); frame 2's is frame 1's where the
     sample's draw is symmetric."""
-    n = params.shape[0]
-    z = torch.randn((2, n, *cfg.crop_hw, 3), generator=generator,
-                    device=device)
-    asym = params[:, ASYM].to(device).view(n, 1, 1, 1) > 0
-    return torch.stack([z[0], torch.where(asym, z[1], z[0])])
+    return _mix_noise(_randn(generator, params.shape[0], cfg, device),
+                      params)
 
 
 def _crop_flip(a: torch.Tensor, rows: torch.Tensor,
@@ -134,9 +148,25 @@ def apply_augment(batch: Batch, params: torch.Tensor, cfg: AugmentConfig,
     to draw it from (unused when ``cfg.photometric`` is off). The crop and
     the flips are one gather per tensor."""
     dev = batch["im1"].device
-    if dev.type == "cuda" and not params.is_cuda:
-        params = params.pin_memory()  # an asynchronous copy, no host wait
-    p = params.to(dev, non_blocking=True)
+    p = params_to(params, dev)
+    if cfg.photometric and isinstance(noise, torch.Generator):
+        noise = draw_noise(noise, p, cfg, dev)
+    return _transform(batch, p, noise, cfg)
+
+
+def params_to(params: torch.Tensor, device) -> torch.Tensor:
+    """The packed scalars on ``device``, to a GPU through pinned memory
+    without a host wait."""
+    if torch.device(device).type == "cuda" and not params.is_cuda:
+        params = params.pin_memory()
+    return params.to(device, non_blocking=True)
+
+
+def _transform(batch: Batch, p: torch.Tensor, noise: Optional[torch.Tensor],
+               cfg: AugmentConfig) -> Batch:
+    """The crop, the flips and the photometric jitter given the scalars and
+    the mixed noise on the batch's device."""
+    dev = batch["im1"].device
     th, tw = cfg.crop_hw
     ar_h = torch.arange(th, device=dev)
     ar_w = torch.arange(tw, device=dev)
@@ -148,12 +178,34 @@ def apply_augment(batch: Batch, params: torch.Tensor, cfg: AugmentConfig,
                        -1).view(-1, 1, 1, 2)
     out["flow"] = out["flow"] * sign
     if cfg.photometric:
-        if isinstance(noise, torch.Generator):
-            noise = draw_noise(noise, p, cfg, dev)
         for i, key in enumerate(("im1", "im2")):
             q = p[:, PHOTO[i]:PHOTO[i] + 6]
             out[key] = _photometric(out[key], q, noise[i], cfg)
     return out
+
+
+def draw_augment(generator: torch.Generator, n: int, hw: Tuple[int, int],
+                 cfg: AugmentConfig, noise_generator: torch.Generator
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Both draws of one step, outside any graph: the packed scalars (CPU,
+    ``draw_augment_params``) and the standard normal (2, n, th, tw, 3) on
+    ``noise_generator``'s device, after reseeding it with the drawn seed
+    (None when ``cfg.photometric`` is off), as ``augment_batch`` draws
+    them."""
+    params, seed = draw_augment_params(generator, n, hw, cfg)
+    noise_generator.manual_seed(seed)
+    z = _randn(noise_generator, n, cfg, noise_generator.device) \
+        if cfg.photometric else None
+    return params, z
+
+
+def augment_device(batch: Batch, params: torch.Tensor,
+                   z: Optional[torch.Tensor], cfg: AugmentConfig) -> Batch:
+    """The augmentation as a transform of tensors on the batch's device:
+    ``params`` and ``z`` as ``draw_augment`` gives them (``params`` copied
+    to the device). No draw and no host transfer: a graph can hold it."""
+    noise = None if z is None else _mix_noise(z, params)
+    return _transform(batch, params, noise, cfg)
 
 
 def augment_batch(batch: Batch, generator: torch.Generator,
@@ -164,9 +216,8 @@ def augment_batch(batch: Batch, generator: torch.Generator,
     the noise comes from ``noise_generator`` (on that device), reseeded
     with the drawn seed, or from a fresh generator when None."""
     n, h, w = batch["im1"].shape[:3]
-    params, seed = draw_augment_params(generator, n, (h, w), cfg)
     dev = batch["im1"].device
     if noise_generator is None:
         noise_generator = torch.Generator(device=dev)
-    noise_generator.manual_seed(seed)
-    return apply_augment(batch, params, cfg, noise_generator)
+    params, z = draw_augment(generator, n, (h, w), cfg, noise_generator)
+    return augment_device(batch, params_to(params, dev), z, cfg)

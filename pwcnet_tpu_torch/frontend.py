@@ -23,22 +23,22 @@ import torch
 
 from pwcnet_tpu_torch.models.pwcnet import _resolve_device
 from pwcnet_tpu_torch.ops.warp import warp_bilinear
-from pwcnet_tpu_torch.train.evaluate import pad_to_divisible
+from pwcnet_tpu_torch.train.evaluate import infer_flow, pad_to_divisible
 
 
 @torch.inference_mode()
-def _both_flows(model, im1: np.ndarray, im2: np.ndarray
+def _both_flows(model, im1: np.ndarray, im2: np.ndarray,
+                capture: Optional[bool] = None
                 ) -> Tuple[np.ndarray, np.ndarray]:
     """(H, W, 2) forward and backward pixel flows from one batched forward
-    (``train=False``)."""
+    (``train=False``; captured on a CUDA model, see ``infer_flow``)."""
     h, w = im1.shape[:2]
     im1, im2 = np.asarray(im1, np.float32), np.asarray(im2, np.float32)
     a, _ = pad_to_divisible(np.stack([im1, im2]), model.pad_divisor)
     b, _ = pad_to_divisible(np.stack([im2, im1]), model.pad_divisor)
     a = torch.tensor(a, device=model.device)
     b = torch.tensor(b, device=model.device)
-    full = model.full_res_flow(model(a, b, train=False), tuple(a.shape[1:3]))
-    full = full[:, :h, :w].float().cpu().numpy()
+    full = infer_flow(model, a, b, capture)[:, :h, :w].float().cpu().numpy()
     return full[0], full[1]
 
 
@@ -56,7 +56,8 @@ def fb_consistency(flow_fw: np.ndarray, flow_bw: np.ndarray,
 
 
 def match_two_view(model, im1: np.ndarray, im2: np.ndarray, *,
-                   grid_step: int = 8, fb_threshold: float = 1.5
+                   grid_step: int = 8, fb_threshold: float = 1.5,
+                   capture: Optional[bool] = None
                    ) -> Dict[str, np.ndarray]:
     """Sparse matches between one image pair.
 
@@ -65,13 +66,14 @@ def match_two_view(model, im1: np.ndarray, im2: np.ndarray, *,
       im1, im2: (H, W, 3) float images in [0, 1].
       grid_step: the sampling stride in pixels.
       fb_threshold: the largest forward-backward error in px of a match.
+      capture: the batched forward's (``train.evaluate.infer_flow``).
 
     Returns ``pts1``/``pts2`` (M, 2) f32 x-y coordinates, ``confidence``
     (M,) in (0, 1] (1 / (1 + fb_error)), and the dense ``flow`` (H, W, 2)
     and ``fb_error`` (H, W).
     """
     h, w = im1.shape[:2]
-    flow_fw, flow_bw = _both_flows(model, im1, im2)
+    flow_fw, flow_bw = _both_flows(model, im1, im2, capture)
     err = fb_consistency(flow_fw, flow_bw, model.device)
 
     ys, xs = np.mgrid[grid_step // 2:h:grid_step, grid_step // 2:w:grid_step]

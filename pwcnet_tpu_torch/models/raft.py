@@ -308,5 +308,7 @@ class RAFT(nn.Module):
         the W ratio and v by the H ratio."""
         flow = flows[-1]
         sy, sx = hw[0] / flow.shape[1], hw[1] / flow.shape[2]
-        scale = torch.tensor([sx, sy], dtype=flow.dtype, device=flow.device)
-        return resize_bilinear(flow, hw) * scale
+        up = resize_bilinear(flow, hw)
+        # Scalar products, not a host tensor: nothing is copied to the
+        # device, so a graph can hold it.
+        return torch.stack([up[..., 0] * sx, up[..., 1] * sy], -1)

@@ -47,8 +47,9 @@ Tasks:
   world rank and size, device, backend, shape, this rank's data, spatial
   and model index, and the world ranks of its data and spatial groups;
 - ``{"kind": "train", "cfg": Config, "max_steps": int, "digest": bool,
-  "profile": bool}``: ``train_with_state(cfg, max_steps)`` on this rank
-  (the job's device and backend; ``cfg.parallel`` names the grid, e.g.
+  "profile": bool, "capture": bool}``: ``train_with_state(cfg, max_steps,
+  capture=capture)`` on this rank (``capture`` default None; the job's
+  device and backend; ``cfg.parallel`` names the grid, e.g.
   ``data=2, spatial=2``): its final metrics, the kernel launches per step
   (the run takes ``max_steps`` steps), the wall seconds, and the final
   parameters (on the CPU), or their SHA-256 with ``digest``; with
@@ -242,7 +243,8 @@ def _train(task: dict, job: dict) -> dict:
     t0 = time.perf_counter()
     try:
         final, state = train_with_state(task["cfg"], task["max_steps"],
-                                        device=dev, backend=job["backend"])
+                                        device=dev, backend=job["backend"],
+                                        capture=task.get("capture"))
         _sync(state.model.device)
     finally:
         if prof is not None:

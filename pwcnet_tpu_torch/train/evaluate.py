@@ -2,7 +2,9 @@
 EPE, Fl-all and their breakdowns (``evaluate_dataset``), and single-pair
 inference (``predict_flow``: pad to the model's divisor, forward with
 ``train=False``, upsample the finest flow to full resolution, undo the
-supervision scale, crop), for PWC-Net and RAFT."""
+supervision scale, crop), for PWC-Net and RAFT. On a CUDA model both run
+through the model's captured graphs (``capture.py``) unless the caller
+passes ``capture=False``."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from pwcnet_tpu_torch.capture import capture_enabled, model_captured
 from pwcnet_tpu_torch.data.base import FlowDataset
 from pwcnet_tpu_torch.data.pipeline import eval_batches
 from pwcnet_tpu_torch.models.pwcnet import PWCNet
@@ -32,24 +35,42 @@ def pad_to_divisible(img: np.ndarray, div: int = 64
     return np.pad(img, pad), (h, w)
 
 
+def _full_res(model, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return model.full_res_flow(model(a, b, train=False), tuple(a.shape[1:3]))
+
+
+@torch.inference_mode()
+def infer_flow(model: Union[PWCNet, RAFT], a: torch.Tensor, b: torch.Tensor,
+               capture: Optional[bool] = None) -> torch.Tensor:
+    """The inference forward of padded (N, H, W, 3) images on the model's
+    device -> (N, H, W, 2) full-resolution pixel flow. ``capture`` (None:
+    on a CUDA model) replays the model's graph of the input shape."""
+    if capture_enabled(capture, model.device):
+        return model_captured(model, "inference forward", _full_res)(
+            model, a, b)
+    return _full_res(model, a, b)
+
+
 @torch.inference_mode()
 def predict_flow(model: Union[PWCNet, RAFT], im1: np.ndarray,
-                 im2: np.ndarray) -> np.ndarray:
+                 im2: np.ndarray, capture: Optional[bool] = None
+                 ) -> np.ndarray:
     """(H, W, 3) images in [0, 1] -> (H, W, 2) f32 pixel flow at input
-    resolution, on the model's device."""
+    resolution, on the model's device (through ``infer_flow``)."""
     div = model.pad_divisor
     p1, (h, w) = pad_to_divisible(np.asarray(im1, np.float32)[None], div)
     p2, _ = pad_to_divisible(np.asarray(im2, np.float32)[None], div)
     a = torch.tensor(p1, device=model.device)  # a copy: p1 may be read-only
     b = torch.tensor(p2, device=model.device)
-    full = model.full_res_flow(model(a, b, train=False), tuple(a.shape[1:3]))
+    full = infer_flow(model, a, b, capture)
     return full[0, :h, :w].float().cpu().numpy()
 
 
 def evaluate_dataset(model: Union[PWCNet, RAFT], dataset: FlowDataset,
                      batch: int = 4, limit: Optional[int] = None,
                      mesh: Optional[GridMesh] = None,
-                     return_per_sample: bool = False):
+                     return_per_sample: bool = False,
+                     capture: Optional[bool] = None):
     """Mean EPE and Fl-all (%) over the first ``limit`` samples, masked by
     validity (padding is invalid), with the EPE by GT magnitude and the
     per-sample means and standard errors: the JAX function's keys. With
@@ -61,10 +82,11 @@ def evaluate_dataset(model: Union[PWCNet, RAFT], dataset: FlowDataset,
     rows of each eval batch of ``batch`` pairs (which must divide over the
     data axis; the spatial and model replicas of a data row evaluate the
     same rows, counted once), and every rank returns the same dict. The sums stay on the model's
-    device and are fetched once at the end.
+    device and are fetched once at the end. ``capture`` is the eval step's
+    (``make_eval_step``).
     """
     local_batch_size(batch, mesh)
-    step = make_eval_step(model, mesh)
+    step = make_eval_step(model, mesh, capture)
     totals, samples = None, []
     for b in eval_batches(dataset, batch, limit=limit,
                           div=model.pad_divisor):

@@ -1,15 +1,16 @@
 """The trainer (counterpart of ``pwcnet_tpu/train/loop.py``) for PWC-Net
 and RAFT, on one device or over a (data, spatial, model) grid of processes.
 
-``train(cfg, max_steps, device=None, backend=None)`` joins the process
-group that ``cfg.parallel`` names (``initialize_distributed``: JAX's
-``coordinator`` / ``num_processes`` / ``process_id``, or ``torchrun``'s
-environment), makes the mesh (``parallel.data``, ``parallel.spatial``,
-``parallel.model``), builds the model and optimizer,
-resumes from the latest checkpoint under ``<log_dir>/ckpt``, and runs the
-steps on batches of the config's dataset: for the file datasets (and
-``synthetic`` without ``device_gen``) from the host ``Loader``, copied to
-the device from pinned memory and augmented inside the step; for
+``train(cfg, max_steps, device=None, backend=None, capture=None)`` joins
+the process group that ``cfg.parallel`` names
+(``initialize_distributed``: JAX's ``coordinator`` / ``num_processes`` /
+``process_id``, or ``torchrun``'s environment), makes the mesh
+(``parallel.data``, ``parallel.spatial``, ``parallel.model``), builds the
+model and optimizer, resumes from the latest checkpoint under
+``<log_dir>/ckpt``, and runs the steps on batches of the config's
+dataset: for the file datasets (and ``synthetic`` without ``device_gen``)
+from the host ``Loader``, copied to the device from pinned memory and
+augmented inside the step; for
 ``synthetic`` with ``device_gen``, rendered on the device, unaugmented. It
 writes metrics every ``summary_interval`` steps (and at the last),
 evaluates on the dataset's val split every ``eval_interval`` steps where
@@ -17,7 +18,12 @@ the dataset has one (``val_epe``, ``val_fl_all``, ``val_epe_s*``, and flow
 images of one val sample), and checkpoints every ``checkpoint_interval``
 steps and at the end. ``train.debug_nans`` raises ``FloatingPointError``
 where a NaN appears (``nan_checks``); ``train.profile_dir`` traces the run
-with ``torch.profiler``. It runs on the GPU unless ``device="cpu"``.
+with ``torch.profiler`` (the graph replays, on a captured run). It runs on
+the GPU unless ``device="cpu"``. On one process on the GPU the train step,
+the periodic eval and the eval images run as captured graphs
+(``capture.py``; ``capture=False`` runs them eagerly), except under
+``train.debug_nans``, whose checks read device values from forward hooks,
+which a graph cannot run: that run is eager, and the log says so.
 
 On a grid of N processes (one per card under ``nccl``; several may share a
 card under ``gloo``) each rank trains on its data row's rows of every
@@ -154,13 +160,14 @@ def to_device(batch: Dict[str, np.ndarray], dev: torch.device
 
 def _evaluate(cfg: Config, model, val_ds, writer: MetricsWriter,
               step: int, final: dict, failures: list,
-              mesh: GridMesh) -> None:
+              mesh: GridMesh, capture: Optional[bool] = None) -> None:
     """The periodic eval on every rank: val metrics into the log and
     ``final``, then (process 0) flow images of val sample 0 (a failure
     there is logged once per run, counted in ``failures``, and training
     goes on, as in the JAX trainer)."""
     ev = evaluate_dataset(model, val_ds, batch=cfg.data.eval_batch,
-                          limit=cfg.train.eval_limit, mesh=mesh)
+                          limit=cfg.train.eval_limit, mesh=mesh,
+                          capture=capture)
     writer.scalars(step, {"val_epe": ev["epe"], "val_fl_all": ev["fl_all"],
                           **{f"val_{k}": v for k, v in ev.items()
                              if k.startswith("epe_s")}})
@@ -169,7 +176,7 @@ def _evaluate(cfg: Config, model, val_ds, writer: MetricsWriter,
         return
     try:
         s0 = val_ds[0]
-        pred = predict_flow(model, s0["im1"], s0["im2"])
+        pred = predict_flow(model, s0["im1"], s0["im2"], capture)
         mm = float(np.abs(s0["flow"]).max()) or None
         writer.flow_image(step, "val/flow_pred", pred, max_mag=mm)
         writer.flow_image(step, "val/flow_gt", s0["flow"], max_mag=mm)
@@ -182,15 +189,19 @@ def _evaluate(cfg: Config, model, val_ds, writer: MetricsWriter,
 
 
 def train(cfg: Config, max_steps: Optional[int] = None, device=None,
-          backend: Optional[str] = None) -> dict:
+          backend: Optional[str] = None,
+          capture: Optional[bool] = None) -> dict:
     """Train per ``cfg``; returns the last summary's metrics and ``step``.
     ``backend`` is the collective backend of a mesh of several processes:
-    None means ``"nccl"`` on CUDA and ``"gloo"`` on the CPU."""
-    return train_with_state(cfg, max_steps, device, backend)[0]
+    None means ``"nccl"`` on CUDA and ``"gloo"`` on the CPU. ``capture``
+    is the train and eval steps' (None: on one process on the GPU, unless
+    ``train.debug_nans``)."""
+    return train_with_state(cfg, max_steps, device, backend, capture)[0]
 
 
 def train_with_state(cfg: Config, max_steps: Optional[int] = None,
-                     device=None, backend: Optional[str] = None
+                     device=None, backend: Optional[str] = None,
+                     capture: Optional[bool] = None
                      ) -> Tuple[dict, TrainState]:
     """``train``, also returning the final ``TrainState``."""
     dev = _resolve_device(device)
@@ -233,13 +244,21 @@ def train_with_state(cfg: Config, max_steps: Optional[int] = None,
                              **ds_kw)
     except (FileNotFoundError, ValueError):
         val_ds = None  # no val split: no periodic eval
+    if cfg.train.debug_nans:
+        if capture:
+            raise ValueError("train.debug_nans runs eagerly: its checks "
+                             "cannot run inside a captured graph")
+        if dev.type == "cuda" and mesh.size == 1:
+            _log.warning("train.debug_nans: the train and eval steps run "
+                         "eagerly, not as captured graphs")
+        capture = False
     # Under a mesh DDP broadcasts rank 0's weights here.
     step_fn = make_train_step(model, optimizer, scheduler,
                               loss_kind=cfg.train.loss,
                               level_weights=cfg.train.level_weights,
                               grad_clip=cfg.train.grad_clip,
                               aug=None if use_devgen else cfg.data.augment,
-                              mesh=mesh)
+                              mesh=mesh, capture=capture)
     train_ds = None if use_devgen else get_dataset(
         cfg.data.name, cfg.data.root, split="train", **ds_kw)
     writer = MetricsWriter(cfg.train.log_dir)
@@ -293,7 +312,7 @@ def train_with_state(cfg: Config, max_steps: Optional[int] = None,
                 every = cfg.train.eval_interval
                 if val_ds is not None and every > 0 and step % every == 0:
                     _evaluate(cfg, model, val_ds, writer, step, final,
-                              summary_failures, mesh)
+                              summary_failures, mesh, capture)
                 if step % cfg.train.checkpoint_interval == 0 or \
                         step == total:
                     ckpt.save(state)

@@ -55,6 +55,8 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: ScheduleConfig,
     ``coupled_l2`` is optax's ``add_decayed_weights`` + ``adam``, i.e.
     ``torch.optim.Adam(weight_decay=...)``, the reference's optimizer.
     Gradient clipping (``grad_clip``) is applied by the train step.
+    A captured train step turns the optimizer ``capturable`` when it is
+    made (``make_capturable``).
     """
     cls = torch.optim.Adam if coupled_l2 else torch.optim.AdamW
     opt = cls(params, lr=cfg.base_lr, betas=(0.9, 0.999), eps=1e-8,
@@ -62,6 +64,63 @@ def make_optimizer(params: Iterable[torch.nn.Parameter], cfg: ScheduleConfig,
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda count: lr_at(cfg, count) / cfg.base_lr)
     return opt, sched
+
+
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """The form of ``optimizer`` that a captured step (``capture.py``)
+    needs, in place, for its groups of CUDA parameters: ``capturable``,
+    ``lr`` a 0-d f32 tensor on their device that the scheduler ``fill_``s
+    from the host between replays (its base rate stays a float), and each
+    ``step`` on the device. It changes Adam's rounding (the bias
+    corrections become f32 device arithmetic), so only a captured step
+    takes it; ``capturable`` is CUDA-only, so CPU groups stay as they
+    are."""
+    for group in optimizer.param_groups:
+        dev = group["params"][0].device
+        if dev.type != "cuda":
+            continue
+        if not torch.is_tensor(group["lr"]):
+            group["lr"] = torch.tensor(float(group["lr"]), device=dev)
+        group["capturable"] = True
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(p.device, torch.float32)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, sd: dict) -> None:
+    """``optimizer.load_state_dict(sd)`` across devices: a checkpoint
+    written on the card (``capturable``, a tensor ``lr``) loads on the CPU
+    and the other way round. ``load_state_dict`` copies the saved options
+    over the optimizer's own, so the optimizer's own ``capturable`` and
+    ``lr`` type are put back, with ``step`` where that ``capturable`` keeps
+    it. The moments, ``step`` and a tensor ``lr`` are copied into the
+    optimizer's existing tensors where it has them, so that a captured
+    step, which reads those tensors, continues from the loaded state."""
+    own = [(g["lr"], g.get("capturable", False))
+           for g in optimizer.param_groups]
+    before = {p: dict(st) for p, st in optimizer.state.items()}
+    optimizer.load_state_dict(sd)
+    for group, (lr, capturable) in zip(optimizer.param_groups, own):
+        saved_lr = float(group["lr"])
+        if torch.is_tensor(lr):
+            lr.fill_(saved_lr)
+            group["lr"] = lr
+        else:
+            group["lr"] = saved_lr
+        group["capturable"] = capturable
+        if torch.is_tensor(group.get("initial_lr")):
+            group["initial_lr"] = float(group["initial_lr"])
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            if torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].to(
+                    p.device if capturable else "cpu", torch.float32)
+            for k, v in st.items():
+                old = before.get(p, {}).get(k)
+                if (torch.is_tensor(v) and torch.is_tensor(old)
+                        and old.shape == v.shape and old.device == v.device):
+                    st[k] = old.copy_(v)
 
 
 def optimizer_from_config(params: Iterable[torch.nn.Parameter], train_cfg):

@@ -15,6 +15,8 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
+from pwcnet_tpu_torch.train.schedule import load_optimizer_state
+
 
 @dataclass
 class TrainState:
@@ -40,6 +42,6 @@ class TrainState:
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         self.step = int(sd["step"])
         self.model.load_state_dict(sd["model"])
-        self.optimizer.load_state_dict(sd["optimizer"])
+        load_optimizer_state(self.optimizer, sd["optimizer"])
         self.scheduler.load_state_dict(sd["scheduler"])
         self.generator.set_state(sd["generator"])

@@ -26,6 +26,17 @@ with identical replicas the world mean is JAX's ``pmean`` over ``data``.
 augmentation draws from ``fold_in(state.generator, data index)``. The eval
 step sums over the data axis only and gathers ``per_sample`` in data
 order, so no sample is counted twice.
+
+On a CUDA model outside such a grid both steps are captured
+(``capture.py``), as JAX jits them: the train step once per batch
+signature after one eager step (which builds the kernels and the
+optimizer's state), the eval step per padded batch shape, with the
+model's graphs. The graph holds the augmentation's transform, the
+forward, the loss, ``backward()``, the norm, the clipping, the update and
+the metrics; the host keeps the augmentation's draws, the scheduler and
+the step count. The eager step runs the same body on the same draws.
+``capture=False`` keeps the eager path; a grid of several processes is
+always eager (its collectives are not captured).
 """
 
 from __future__ import annotations
@@ -35,14 +46,18 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
+from pwcnet_tpu_torch.capture import (Captured, capture_enabled,
+                                      model_captured, signature)
 from pwcnet_tpu_torch.config import AugmentConfig
-from pwcnet_tpu_torch.data.augment import augment_batch, fold_in
+from pwcnet_tpu_torch.data.augment import (augment_device, draw_augment,
+                                           fold_in, params_to)
 from pwcnet_tpu_torch.losses import (LEVEL_WEIGHTS, downsample_gt, epe,
                                      fl_outliers, multiscale_loss,
                                      robust_loss, sequence_loss)
 from pwcnet_tpu_torch.parallel.mesh import GridMesh
 from pwcnet_tpu_torch.parallel.spatial_ops import (all_gather_rows,
                                                    all_reduce_sum)
+from pwcnet_tpu_torch.train.schedule import make_capturable
 from pwcnet_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -75,7 +90,8 @@ def make_train_step(model, optimizer, scheduler,
                     level_weights: Optional[Sequence[float]] = None,
                     grad_clip: float = 0.0,
                     aug: Optional[AugmentConfig] = None,
-                    mesh: Optional[GridMesh] = None
+                    mesh: Optional[GridMesh] = None,
+                    capture: Optional[bool] = None
                     ) -> Callable[[TrainState, Batch],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """``step(state, batch) -> (state, metrics)``; ``batch`` holds f32 im1,
@@ -87,11 +103,22 @@ def make_train_step(model, optimizer, scheduler,
     the model's device from a generator seeded by a draw of the same, so a
     restored state replays the augmentation. ``state`` is advanced in place
     and returned. Under a mesh, ``DistributedDataParallel`` broadcasts
-    rank 0's parameters when the step is made."""
+    rank 0's parameters when the step is made.
+
+    ``capture`` (None: on a CUDA model outside a grid of several processes;
+    ``True`` on the CPU raises) runs the first step of each batch signature
+    eagerly and captures the next, then replays it (module docstring). The
+    metrics are fresh tensors at every call. The parameters' gradients are
+    the graph's between replays: nothing else may reset them. A captured
+    step makes the optimizer ``capturable`` here (``make_capturable``); an
+    eager one leaves it as it is."""
     loss_fn = _make_loss(loss_kind, model, level_weights)
     params = [p for p in model.parameters() if p.requires_grad]
     noise_gen = torch.Generator(device=model.device) if aug else None
     distributed = _distributed(mesh)
+    capture = capture_enabled(capture, model.device, distributed)
+    if capture:
+        make_capturable(optimizer)
     # DDP over the world, not the data group: the replicas of a data row
     # are meant to be identical, so the world mean is the data mean, and
     # every rank then applies the same averaged gradients. That keeps all
@@ -103,11 +130,9 @@ def make_train_step(model, optimizer, scheduler,
         model, process_group=mesh.group, broadcast_buffers=False
     ) if distributed else model
 
-    def step(state: TrainState, batch: Batch):
-        if aug is not None:
-            gen = (fold_in(state.generator, mesh.data_mesh.rank)
-                   if distributed else state.generator)
-            batch = augment_batch(batch, gen, aug, noise_gen)
+    def update(batch: Batch) -> Dict[str, torch.Tensor]:
+        """Forward, loss, backward, clipping, update, metrics: device work
+        only, so that a graph can hold it."""
         optimizer.zero_grad(set_to_none=True)
         if loss_fn is None:  # the sequence loss inside RAFT's loop
             flows, loss = net(batch["im1"], batch["im2"], gt=batch["flow"],
@@ -124,8 +149,6 @@ def make_train_step(model, optimizer, scheduler,
             # exceeds it; torch divides by norm + 1e-6.
             torch.nn.utils.clip_grad_norm_(params, grad_clip)
         optimizer.step()
-        scheduler.step()
-        state.step += 1
         with torch.no_grad():
             finest = flows[-1].detach()
             to_px = getattr(model, "flow_scale",
@@ -139,8 +162,44 @@ def make_train_step(model, optimizer, scheduler,
                 loss, train_epe = all_reduce_sum(
                     torch.stack([loss.float(), train_epe.float()]),
                     mesh) / mesh.size
-        return state, {"loss": loss, "train_epe": train_epe,
-                       "grad_norm": grad_norm.detach()}
+        return {"loss": loss, "train_epe": train_epe,
+                "grad_norm": grad_norm.detach()}
+
+    def augment_update(batch: Batch, drawn=None, z=None):
+        if aug is not None:
+            batch = augment_device(batch, drawn, z, aug)
+        return update(batch)
+
+    graphs = Captured(augment_update, warmup=0, name="train step") \
+        if capture else None
+    warmed = set()
+    # Per signature, the gradient tensors its graph writes: kept alive, so
+    # that a later capture into the shared pool never takes their memory.
+    graph_grads = {}
+
+    def step(state: TrainState, batch: Batch):
+        args = (batch,)
+        if aug is not None:  # the draws, on the host
+            gen = (fold_in(state.generator, mesh.data_mesh.rank)
+                   if distributed else state.generator)
+            n, h, w = batch["im1"].shape[:3]
+            drawn, z = draw_augment(gen, n, (h, w), aug, noise_gen)
+            args = (batch, params_to(drawn, model.device), z)
+        if graphs is None:
+            metrics = augment_update(*args)
+        else:
+            key = signature(*args)
+            if key in graphs or key in warmed:
+                metrics = graphs(*args)
+                if key not in graph_grads:
+                    graph_grads[key] = [p.grad for p in params]
+            else:  # a real step: builds the kernels and Adam's state
+                metrics = graphs.warm(*args)
+                warmed.add(key)
+        # On the host, between replays: a tensor lr is fill_ed in place.
+        scheduler.step()
+        state.step += 1
+        return state, metrics
 
     return step
 
@@ -149,7 +208,31 @@ def make_train_step(model, optimizer, scheduler,
 EPE_MAG_BINS = (10.0, 40.0)
 
 
-def make_eval_step(model, mesh: Optional[GridMesh] = None
+def _eval_sums(model, batch: Batch) -> Tuple[torch.Tensor, ...]:
+    """The eval step's sums and per-sample rows of one batch (no mesh)."""
+    flows = model(batch["im1"], batch["im2"], train=False)
+    full = model.full_res_flow(flows, tuple(batch["im1"].shape[1:3]))
+    gt, v = batch["flow"].float(), batch["valid"].float()
+    diff = full - gt
+    dist_px = torch.sqrt((diff * diff).sum(-1) + 1e-16)
+    outlier = fl_outliers(full, gt)
+    mag = torch.sqrt((gt ** 2).sum(-1) + 1e-16)
+    lo, hi = EPE_MAG_BINS
+    masks = ((mag < lo).float() * v, ((mag >= lo) & (mag < hi)).float() * v,
+             (mag >= hi).float() * v)
+    bins = torch.stack([torch.stack([(dist_px * m).sum() for m in masks]),
+                        torch.stack([m.sum() for m in masks])])
+    axes = tuple(range(1, dist_px.dim()))
+    per_sample = torch.cat([
+        (dist_px * v).sum(axes)[:, None], v.sum(axes)[:, None],
+        torch.stack([(dist_px * m).sum(axes) for m in masks], 1),
+        torch.stack([m.sum(axes) for m in masks], 1)], 1)
+    return ((dist_px * v).sum(), (outlier * v).sum(), v.sum(), bins,
+            per_sample)
+
+
+def make_eval_step(model, mesh: Optional[GridMesh] = None,
+                   capture: Optional[bool] = None
                    ) -> Callable[[Batch], Tuple[torch.Tensor, ...]]:
     """``eval(batch) -> (sum_epe, sum_outliers, num_valid, bins,
     per_sample)`` on a batch already padded to the model's divisor, as the
@@ -162,30 +245,21 @@ def make_eval_step(model, mesh: Optional[GridMesh] = None
     collective; a spatial or model replica holds the same rows, and summing
     over the world would count each sample S * M times) and ``per_sample``
     gathered in data order, so every rank returns the global batch's
-    values."""
+    values.
+
+    ``capture`` (None: on a CUDA model outside a grid of several
+    processes) replays the model's graph of each padded batch shape, kept
+    with the model (``capture.model_captured``)."""
     data = None if mesh is None else mesh.data_mesh
+    distributed = _distributed(data)
+    if capture_enabled(capture, model.device, distributed):
+        graphs = model_captured(model, "eval step", _eval_sums)
+        return torch.no_grad()(lambda batch: graphs(model, batch))
 
     @torch.no_grad()
     def step(batch: Batch):
-        flows = model(batch["im1"], batch["im2"], train=False)
-        full = model.full_res_flow(flows, tuple(batch["im1"].shape[1:3]))
-        gt, v = batch["flow"].float(), batch["valid"].float()
-        diff = full - gt
-        dist_px = torch.sqrt((diff * diff).sum(-1) + 1e-16)
-        outlier = fl_outliers(full, gt)
-        mag = torch.sqrt((gt ** 2).sum(-1) + 1e-16)
-        lo, hi = EPE_MAG_BINS
-        masks = ((mag < lo).float() * v, ((mag >= lo) & (mag < hi)).float() * v,
-                 (mag >= hi).float() * v)
-        bins = torch.stack([torch.stack([(dist_px * m).sum() for m in masks]),
-                            torch.stack([m.sum() for m in masks])])
-        axes = tuple(range(1, dist_px.dim()))
-        per_sample = torch.cat([
-            (dist_px * v).sum(axes)[:, None], v.sum(axes)[:, None],
-            torch.stack([(dist_px * m).sum(axes) for m in masks], 1),
-            torch.stack([m.sum(axes) for m in masks], 1)], 1)
-        sums = ((dist_px * v).sum(), (outlier * v).sum(), v.sum(), bins)
-        if not _distributed(data):
+        *sums, per_sample = _eval_sums(model, batch)
+        if not distributed:
             return (*sums, per_sample)
         flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in sums]),
                               data)
