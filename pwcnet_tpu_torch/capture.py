@@ -30,8 +30,12 @@ collectives are not captured), ``True`` on the CPU raises. ``model_captured``
 keeps a model's graphs with the model, for as long as it lives.
 
 The port's kernel wrappers launch on ``torch.cuda.current_stream()``, so a
-capture records them; their ``LAUNCHES`` counters count the capture, not
-the replays.
+capture records them, and a replay launches what the capture recorded:
+their ``LAUNCHES`` counters add a signature's launches once, at its
+capture. ``Captured`` counts in ``trace.py``'s registry
+``capture.<name>.captures`` (signatures recorded) and ``.replays``
+(signatures found), and records the spans ``capture.key``, ``capture.load``,
+``capture.replay`` and ``capture.record``.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from pwcnet_tpu_torch import trace
 
 
 def capture_enabled(capture: Optional[bool], device,
@@ -159,6 +165,8 @@ class Captured:
     def __init__(self, fn: Callable, warmup: int = 1, name: str = ""):
         self.fn, self.warmup = fn, warmup
         self.name = name or getattr(fn, "__qualname__", repr(fn))
+        self._counts = trace.counters(
+            "capture." + self.name.replace(" ", "_"), ("captures", "replays"))
         self.entries: Dict[tuple, _Entry] = {}
         self._pool = None
         self._stream: Optional[torch.cuda.Stream] = None
@@ -210,16 +218,22 @@ class Captured:
         entry.graph.replay()
 
     def __call__(self, *args, **kwargs):
-        spec, leaves = _split((args, kwargs))
-        key = _key(spec, leaves)
+        with trace.span("capture.key"):
+            spec, leaves = _split((args, kwargs))
+            key = _key(spec, leaves)
         entry = self.entries.get(key)
         if entry is None:
-            entry = _Entry(spec, [_keep(x) for x in leaves])
-            self._record(key, entry)
+            self._counts["captures"] += 1
+            with trace.span("capture.record"):
+                entry = _Entry(spec, [_keep(x) for x in leaves])
+                self._record(key, entry)
             self.entries[key] = entry
         else:
-            entry.load(leaves)
-        self._replay(entry)
+            self._counts["replays"] += 1
+            with trace.span("capture.load"):
+                entry.load(leaves)
+        with trace.span("capture.replay"):
+            self._replay(entry)
         return _clone(entry.outputs)
 
 

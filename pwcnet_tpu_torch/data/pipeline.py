@@ -16,7 +16,7 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-from pwcnet_tpu_torch import native
+from pwcnet_tpu_torch import native, trace
 from pwcnet_tpu_torch.data.base import FlowDataset
 
 _log = logging.getLogger(__name__)
@@ -170,14 +170,16 @@ class Loader:
         return self
 
     def __next__(self) -> Dict[str, np.ndarray]:
-        while True:
-            try:
-                step, batch = self._q.get(timeout=1.0)
-                break
-            except queue.Empty:
-                if not self._thread.is_alive():
-                    raise RuntimeError("the Loader's producer stopped "
-                                       "(see its traceback above)") from None
+        with trace.span("loader.wait"):
+            while True:
+                try:
+                    step, batch = self._q.get(timeout=1.0)
+                    break
+                except queue.Empty:
+                    if not self._thread.is_alive():
+                        raise RuntimeError(
+                            "the Loader's producer stopped (see its "
+                            "traceback above)") from None
         self.step = step + 1
         return batch
 

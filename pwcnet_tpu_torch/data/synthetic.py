@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from pwcnet_tpu_torch import trace
 from pwcnet_tpu_torch.data.base import FlowDataset, register_dataset
 from pwcnet_tpu_torch.parallel.mesh import local_batch_size
 
@@ -271,17 +272,25 @@ def make_device_batcher(global_batch: int, hw: Tuple[int, int],
     render the same rows. The JAX
     device batcher draws with ``jax.random``, whose bits torch cannot
     reproduce: the two batchers give the same law, not the same samples.
-    Parity is held on ``_render``.
+    Parity is held on ``_render``. Spans ``device_batcher`` and its
+    ``.draw``, ``.upload``, ``.render`` (``trace.py``).
     """
     n = local_batch_size(global_batch, mesh)
     first = 0 if mesh is None else mesh.data_mesh.rank * n
 
     def batch(step: int) -> Dict[str, torch.Tensor]:
-        samples = []
-        for i in range(first, first + n):
-            rng = np.random.default_rng((seed, 2, int(step), i))
-            p = _scale_pos(_host_params(rng, regime), hw)
-            samples.append(_render(hw, to_device(p, device)))
-        return {k: torch.stack([s[k] for s in samples]) for k in samples[0]}
+        with trace.span("device_batcher"):
+            samples = []
+            for i in range(first, first + n):
+                with trace.span("device_batcher.draw"):
+                    rng = np.random.default_rng((seed, 2, int(step), i))
+                    p = _scale_pos(_host_params(rng, regime), hw)
+                with trace.span("device_batcher.upload"):
+                    p = to_device(p, device)
+                with trace.span("device_batcher.render"):
+                    samples.append(_render(hw, p))
+            with trace.span("device_batcher.render"):
+                return {k: torch.stack([s[k] for s in samples])
+                        for k in samples[0]}
 
     return batch

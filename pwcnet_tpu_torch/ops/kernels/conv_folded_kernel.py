@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from pwcnet_tpu_torch import trace
 from pwcnet_tpu_torch.ops.conv import _same_pads
 from pwcnet_tpu_torch.ops.kernels.build import aligned16, load_library
 from pwcnet_tpu_torch.ops.kernels.cost_volume_kernel import autograd_of
@@ -24,7 +25,7 @@ SOURCE = "pwcnet_tpu_torch/csrc/conv_folded.cu"
 REPLACES = "pwcnet_tpu/ops/pallas/conv_kernel.py:148"
 
 # Kernel launches in this process; the wrapper adds one per launch.
-LAUNCHES = {"conv_folded": 0}
+LAUNCHES = trace.counters("launches.conv_folded", ("conv_folded",))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -27,6 +27,7 @@ from typing import Tuple
 
 import torch
 
+from pwcnet_tpu_torch import trace
 from pwcnet_tpu_torch.ops.kernels.build import aligned16, load_library
 
 SOURCE = "pwcnet_tpu_torch/csrc/cost_volume.cu"
@@ -38,8 +39,8 @@ PRE_REPLACES = "pwcnet_tpu/ops/pallas/cost_volume_kernel.py:134"
 MAX_DISPLACEMENT = 4  # the kernels are built for 1 <= d <= 4
 
 # Kernel launches in this process; each wrapper adds one per launch.
-LAUNCHES = {"corr_fwd": 0, "corr_bwd_f1": 0, "corr_bwd_f2": 0,
-            "corr_fwd_prepadded": 0}
+LAUNCHES = trace.counters("launches.cost_volume", (
+    "corr_fwd", "corr_bwd_f1", "corr_bwd_f2", "corr_fwd_prepadded"))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -18,6 +18,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from pwcnet_tpu_torch import trace
 from pwcnet_tpu_torch.ops.conv import _same_pads, conv_same, leaky_relu
 from pwcnet_tpu_torch.ops.kernels.build import aligned16, load_library
 
@@ -28,7 +29,7 @@ C1, C2 = 16, 32
 _WANT = [(C1, 3), (C1, C1), (C2, C1), (C2, C2)]  # (out, in) channels
 
 # Kernel launches in this process; each wrapper adds one per launch.
-LAUNCHES = {"stem_fwd": 0, "stem_bwd": 0}
+LAUNCHES = trace.counters("launches.stem", ("stem_fwd", "stem_bwd"))
 
 Params = Sequence[Tuple[torch.Tensor, torch.Tensor]]
 _P = ctypes.c_void_p

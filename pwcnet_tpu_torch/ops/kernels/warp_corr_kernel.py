@@ -29,6 +29,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
+from pwcnet_tpu_torch import trace
 from pwcnet_tpu_torch.ops.kernels.build import aligned16, load_library
 from pwcnet_tpu_torch.ops.kernels.cost_volume_kernel import (
     _check_features, autograd_of, cost_volume_bwd_cuda)
@@ -39,7 +40,8 @@ REPLACES = "pwcnet_tpu/ops/pallas/warp_corr_kernel.py:97"
 PRE_REPLACES = "pwcnet_tpu/ops/pallas/warp_corr_kernel.py:144"
 
 # Kernel launches in this process; each wrapper adds one per launch.
-LAUNCHES = {"warp_corr_fwd": 0, "warp_corr_fwd_prepadded": 0}
+LAUNCHES = trace.counters("launches.warp_corr", (
+    "warp_corr_fwd", "warp_corr_fwd_prepadded"))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

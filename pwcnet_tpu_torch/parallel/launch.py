@@ -84,21 +84,23 @@ import torch.distributed as dist
 _ROOT = Path(__file__).resolve().parents[2]
 
 
-def _kernel_modules():
-    from pwcnet_tpu_torch.ops.kernels import (cost_volume_kernel, stem_kernel,
-                                              warp_corr_kernel)
-    return (cost_volume_kernel, stem_kernel, warp_corr_kernel)
+def _launch_counters() -> list:
+    """The kernel modules' ``LAUNCHES`` dicts, from the counter registry
+    (importing the modules registers them)."""
+    from pwcnet_tpu_torch import trace
+    from pwcnet_tpu_torch.ops.kernels import (  # noqa: F401
+        cost_volume_kernel, stem_kernel, warp_corr_kernel)
+    return list(trace.groups("launches").values())
 
 
 def _launches() -> dict:
-    return {k: v for m in _kernel_modules() for k, v in m.LAUNCHES.items()
-            if v}
+    return {k: v for d in _launch_counters() for k, v in d.items() if v}
 
 
 def _reset_launches() -> None:
-    for m in _kernel_modules():
-        for k in m.LAUNCHES:
-            m.LAUNCHES[k] = 0
+    for d in _launch_counters():
+        for k in d:
+            d[k] = 0
 
 
 def _sync(device: torch.device) -> None:

@@ -13,6 +13,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from pwcnet_tpu_torch import trace
 from pwcnet_tpu_torch.capture import capture_enabled, model_captured
 from pwcnet_tpu_torch.data.base import FlowDataset
 from pwcnet_tpu_torch.data.pipeline import eval_batches
@@ -56,14 +57,23 @@ def predict_flow(model: Union[PWCNet, RAFT], im1: np.ndarray,
                  im2: np.ndarray, capture: Optional[bool] = None
                  ) -> np.ndarray:
     """(H, W, 3) images in [0, 1] -> (H, W, 2) f32 pixel flow at input
-    resolution, on the model's device (through ``infer_flow``)."""
-    div = model.pad_divisor
-    p1, (h, w) = pad_to_divisible(np.asarray(im1, np.float32)[None], div)
-    p2, _ = pad_to_divisible(np.asarray(im2, np.float32)[None], div)
-    a = torch.tensor(p1, device=model.device)  # a copy: p1 may be read-only
-    b = torch.tensor(p2, device=model.device)
-    full = infer_flow(model, a, b, capture)
-    return full[0, :h, :w].float().cpu().numpy()
+    resolution, on the model's device (through ``infer_flow``). Spans
+    ``predict_flow`` and its ``.pad``, ``.upload``, ``.run``, ``.fetch``
+    (``trace.py``)."""
+    with trace.span("predict_flow"):
+        div = model.pad_divisor
+        with trace.span("predict_flow.pad"):
+            p1, (h, w) = pad_to_divisible(
+                np.asarray(im1, np.float32)[None], div)
+            p2, _ = pad_to_divisible(np.asarray(im2, np.float32)[None], div)
+        with trace.span("predict_flow.upload"):
+            # A copy: p1 may be read-only.
+            a = torch.tensor(p1, device=model.device)
+            b = torch.tensor(p2, device=model.device)
+        with trace.span("predict_flow.run"):
+            full = infer_flow(model, a, b, capture)
+        with trace.span("predict_flow.fetch"):
+            return full[0, :h, :w].float().cpu().numpy()
 
 
 def evaluate_dataset(model: Union[PWCNet, RAFT], dataset: FlowDataset,

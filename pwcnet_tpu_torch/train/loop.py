@@ -18,9 +18,12 @@ the dataset has one (``val_epe``, ``val_fl_all``, ``val_epe_s*``, and flow
 images of one val sample), and checkpoints every ``checkpoint_interval``
 steps and at the end. ``train.debug_nans`` raises ``FloatingPointError``
 where a NaN appears (``nan_checks``); ``train.profile_dir`` traces the run
-with ``torch.profiler`` (the graph replays, on a captured run). It runs on
-the GPU unless ``device="cpu"``. On one process on the GPU the train step,
-the periodic eval and the eval images run as captured graphs
+with ``torch.profiler`` (the graph replays, on a captured run, and the
+port's spans: ``trace.py``). Each summary also holds ``graph_captures``
+and ``graph_replays``, the run's graph captures and replays so far: a
+batch shape that changes every step shows as captures that keep rising.
+It runs on the GPU unless ``device="cpu"``. On one process on the GPU the
+train step, the periodic eval and the eval images run as captured graphs
 (``capture.py``; ``capture=False`` runs them eagerly), except under
 ``train.debug_nans``, whose checks read device values from forward hooks,
 which a graph cannot run: that run is eager, and the log says so.
@@ -47,6 +50,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from pwcnet_tpu_torch import trace
 from pwcnet_tpu_torch.config import Config
 from pwcnet_tpu_torch.data.base import get_dataset
 from pwcnet_tpu_torch.data.pipeline import Loader
@@ -151,11 +155,23 @@ def nan_checks(model: torch.nn.Module):
 def to_device(batch: Dict[str, np.ndarray], dev: torch.device
               ) -> Dict[str, torch.Tensor]:
     """A host batch on ``dev``: to a GPU through pinned memory, without
-    waiting for the copy (the step that reads it is queued after it)."""
+    waiting for the copy (the step that reads it is queued after it).
+    Spans ``to_device.pin`` and ``to_device.copy``."""
     if dev.type != "cuda":
         return {k: torch.from_numpy(v) for k, v in batch.items()}
-    return {k: torch.from_numpy(v).pin_memory().to(dev, non_blocking=True)
-            for k, v in batch.items()}
+    with trace.span("to_device.pin"):
+        pinned = {k: torch.from_numpy(v).pin_memory()
+                  for k, v in batch.items()}
+    with trace.span("to_device.copy"):
+        return {k: v.to(dev, non_blocking=True) for k, v in pinned.items()}
+
+
+def _graph_counts() -> Tuple[int, int]:
+    """Graph captures and replays of every ``Captured`` in the process
+    (``trace.py``'s ``capture.*`` counters)."""
+    counts = trace.groups("capture").values()
+    return (sum(c.get("captures", 0) for c in counts),
+            sum(c.get("replays", 0) for c in counts))
 
 
 def _evaluate(cfg: Config, model, val_ds, writer: MetricsWriter,
@@ -292,20 +308,25 @@ def train_with_state(cfg: Config, max_steps: Optional[int] = None,
                     cfg.train.profile_dir))
             prof.start()
         t_last, pairs_since = time.perf_counter(), 0
+        captures0, replays0 = _graph_counts()
         with debug:
             while state.step < total:
-                batch = (batcher(state.step) if loader is None
-                         else to_device(next(loader), dev))
+                with trace.span("trainer.feed"):
+                    batch = (batcher(state.step) if loader is None
+                             else to_device(next(loader), dev))
                 state, metrics = step_fn(state, batch)
                 pairs_since += cfg.train.global_batch
                 step = state.step
                 if step % cfg.train.summary_interval == 0 or step == total:
                     metrics = {k: float(v) for k, v in metrics.items()}
                     dt = time.perf_counter() - t_last
+                    captures, replays = _graph_counts()
                     metrics.update(lr=lr_at(cfg.train.schedule, step),
                                    pairs_per_sec=pairs_since / dt,
                                    pairs_per_sec_per_chip=pairs_since / dt
-                                   / process_count())
+                                   / process_count(),
+                                   graph_captures=captures - captures0,
+                                   graph_replays=replays - replays0)
                     writer.scalars(step, metrics)
                     final = metrics
                     t_last, pairs_since = time.perf_counter(), 0

@@ -46,6 +46,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 from torch.nn.parallel import DistributedDataParallel
 
+from pwcnet_tpu_torch import trace
 from pwcnet_tpu_torch.capture import (Captured, capture_enabled,
                                       model_captured, signature)
 from pwcnet_tpu_torch.config import AugmentConfig
@@ -111,7 +112,8 @@ def make_train_step(model, optimizer, scheduler,
     metrics are fresh tensors at every call. The parameters' gradients are
     the graph's between replays: nothing else may reset them. A captured
     step makes the optimizer ``capturable`` here (``make_capturable``); an
-    eager one leaves it as it is."""
+    eager one leaves it as it is. Spans ``train_step`` and its ``.draw``
+    and ``.schedule`` (``trace.py``)."""
     loss_fn = _make_loss(loss_kind, model, level_weights)
     params = [p for p in model.parameters() if p.requires_grad]
     noise_gen = torch.Generator(device=model.device) if aug else None
@@ -178,27 +180,30 @@ def make_train_step(model, optimizer, scheduler,
     graph_grads = {}
 
     def step(state: TrainState, batch: Batch):
-        args = (batch,)
-        if aug is not None:  # the draws, on the host
-            gen = (fold_in(state.generator, mesh.data_mesh.rank)
-                   if distributed else state.generator)
-            n, h, w = batch["im1"].shape[:3]
-            drawn, z = draw_augment(gen, n, (h, w), aug, noise_gen)
-            args = (batch, params_to(drawn, model.device), z)
-        if graphs is None:
-            metrics = augment_update(*args)
-        else:
-            key = signature(*args)
-            if key in graphs or key in warmed:
-                metrics = graphs(*args)
-                if key not in graph_grads:
-                    graph_grads[key] = [p.grad for p in params]
-            else:  # a real step: builds the kernels and Adam's state
-                metrics = graphs.warm(*args)
-                warmed.add(key)
-        # On the host, between replays: a tensor lr is fill_ed in place.
-        scheduler.step()
-        state.step += 1
+        with trace.span("train_step"):
+            args = (batch,)
+            if aug is not None:  # the draws, on the host
+                with trace.span("train_step.draw"):
+                    gen = (fold_in(state.generator, mesh.data_mesh.rank)
+                           if distributed else state.generator)
+                    n, h, w = batch["im1"].shape[:3]
+                    drawn, z = draw_augment(gen, n, (h, w), aug, noise_gen)
+                    args = (batch, params_to(drawn, model.device), z)
+            if graphs is None:
+                metrics = augment_update(*args)
+            else:
+                key = signature(*args)
+                if key in graphs or key in warmed:
+                    metrics = graphs(*args)
+                    if key not in graph_grads:
+                        graph_grads[key] = [p.grad for p in params]
+                else:  # a real step: builds the kernels and Adam's state
+                    metrics = graphs.warm(*args)
+                    warmed.add(key)
+            # On the host, between replays: a tensor lr is fill_ed in place.
+            with trace.span("train_step.schedule"):
+                scheduler.step()
+            state.step += 1
         return state, metrics
 
     return step

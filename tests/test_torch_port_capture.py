@@ -14,6 +14,7 @@ one CPU thread (multi-threaded CPU torch is not bitwise reproducible).
 import copy
 import dataclasses
 import gc
+import json
 import weakref
 
 import jax
@@ -29,7 +30,7 @@ from pwcnet_tpu.train.step import make_train_step as jax_train_step
 import pwcnet_tpu_torch.capture as capture_mod
 import pwcnet_tpu_torch.train.evaluate as evaluate_mod
 import pwcnet_tpu_torch.train.step as step_mod
-from pwcnet_tpu_torch import PWCNet
+from pwcnet_tpu_torch import PWCNet, trace
 from pwcnet_tpu_torch.capture import Captured, model_captured, signature
 from pwcnet_tpu_torch.compat.flax_weights import load_flax_params
 from pwcnet_tpu_torch.config import AugmentConfig
@@ -252,6 +253,54 @@ def test_captured_train_step_keeps_a_graph_per_signature(emulated,
                                              (h, w))))
     assert calls == [(2, 64, 48), (1, 32, 48), (2, 64, 48)]
     assert state.step == len(shapes)
+
+
+def test_captured_counts_captures_and_replays(emulated):
+    """``capture.<name>.captures`` counts the signatures recorded,
+    ``.replays`` the calls of a known one; the spans name the key, the
+    record, the load, the replay."""
+    f = Captured(lambda x: x * 2, warmup=1, name="count test")
+    counts = trace.counters("capture.count_test")
+    trace.reset()
+    with trace.enabled():
+        for n in (3, 3, 4, 3, 4):
+            assert torch.equal(f(torch.ones(n)), torch.full((n,), 2.0))
+    assert (counts["captures"], counts["replays"]) == (2, 3)
+    new = ["capture.key", "capture.record", "capture.replay"]
+    known = ["capture.key", "capture.load", "capture.replay"]
+    assert [r.name for r in trace.records()] == new + known + new + known * 2
+    trace.reset()
+
+
+def test_train_logs_graph_captures_and_replays(emulated, one_thread,
+                                               tmp_path):
+    """Each summary of ``train()`` holds the run's graph captures and
+    replays so far (the first step eager, the second captured, the rest
+    replayed); with spans on, each step is a ``trainer.feed`` span holding
+    the device batcher's and a ``train_step`` span holding the replay's."""
+    from pwcnet_tpu_torch.config import PRESETS
+    from pwcnet_tpu_torch.train.loop import train
+    cfg = PRESETS["synthetic-proof"]
+    cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype="float32"),
+        data=dataclasses.replace(cfg.data, augment=dataclasses.replace(
+            cfg.data.augment, crop_hw=(64, 64))),
+        train=dataclasses.replace(cfg.train, global_batch=1,
+                                  log_dir=str(tmp_path), summary_interval=1))
+    trace.reset()
+    with trace.enabled():
+        final = train(cfg, max_steps=3, device="cpu", capture=True)
+    recs = [json.loads(line) for line in
+            (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert [(r["graph_captures"], r["graph_replays"]) for r in recs] == [
+        (0, 0), (1, 0), (1, 1)]
+    assert (final["graph_captures"], final["graph_replays"]) == (1, 1)
+    assert [r.name for r in trace.records() if r.parent < 0] == [
+        "trainer.feed", "train_step"] * 3
+    assert "device_batcher" in trace.totals("trainer.feed")[0]
+    assert {"train_step.schedule", "capture.replay"} <= set(
+        trace.totals("train_step")[-1])
+    trace.reset()
 
 
 # ---------------------------------------------------------------------------
