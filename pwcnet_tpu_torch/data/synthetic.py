@@ -19,7 +19,7 @@ come from ``make_device_batcher``.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -255,6 +255,49 @@ class SyntheticFlow(FlowDataset):
         return dict(out)
 
 
+# Where each array starts in ``_upload``'s buffer: a multiple of 128 f32
+# (512 bytes, the CUDA caching allocator's rounding), so that every view is
+# as aligned as an allocation of its own and the rendering picks the kernels
+# it picks for one.
+_ALIGN = 128
+
+COUNTS = trace.counters("device_batcher", ("batches", "pinned_uploads"))
+
+
+def _upload(draws: List[Dict[str, np.ndarray]], device) -> List[Params]:
+    """The draws of a batch's samples (f32 arrays of the same keys and
+    shapes) on ``device`` in one copy: one flat buffer of a block a sample,
+    each array at the same offset in every block, handed back as views of
+    the one device tensor in the arrays' shapes (two host calls a key;
+    views launch nothing). To a GPU the buffer is pinned and the copy does
+    not wait: the caching host allocator records the copy and hands the
+    block out again only after it has run. Elsewhere the buffer is a plain
+    tensor."""
+    n, layout, block = len(draws), {}, 0
+    for k, v in draws[0].items():
+        layout[k] = (block, np.shape(v))
+        block += -(-np.size(v) // _ALIGN) * _ALIGN
+    gap = np.zeros(_ALIGN, np.float32)
+    pieces = []
+    for p in draws:
+        for k in layout:
+            v = p[k].ravel()
+            pieces += (v, gap[:-v.size % _ALIGN])  # zeros to the next offset
+    pin = torch.device(device).type == "cuda"
+    host = torch.empty(n * block, dtype=torch.float32, pin_memory=pin)
+    np.concatenate(pieces, out=host.numpy())
+    if pin:
+        dev = host.to(device, non_blocking=True)
+        COUNTS["pinned_uploads"] += 1
+    else:
+        dev = host.to(device)
+    cols = {}
+    for k, (o, shape) in layout.items():
+        inner = tuple(math.prod(shape[j + 1:]) for j in range(len(shape)))
+        cols[k] = dev.as_strided((n, *shape), (block, *inner), o).unbind(0)
+    return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+
+
 def make_device_batcher(global_batch: int, hw: Tuple[int, int],
                         seed: int = 17, regime: str = "smooth",
                         device="cuda", mesh=None):
@@ -272,21 +315,31 @@ def make_device_batcher(global_batch: int, hw: Tuple[int, int],
     render the same rows. The JAX
     device batcher draws with ``jax.random``, whose bits torch cannot
     reproduce: the two batchers give the same law, not the same samples.
-    Parity is held on ``_render``. Spans ``device_batcher`` and its
-    ``.draw``, ``.upload``, ``.render`` (``trace.py``).
+    Parity is held on ``_render``.
+
+    A batch's draws reach the device in one copy (``_upload``), which on a
+    GPU waits neither for the work queued before it nor for itself, so the
+    draws and launches of one step overlap the device's work of the last.
+    Spans ``device_batcher`` and its ``.draw`` (a sample's), ``.upload``
+    (one a batch), ``.render`` (a sample's launches, then the stack)
+    (``trace.py``); counters ``device_batcher.batches`` and
+    ``.pinned_uploads``.
     """
     n = local_batch_size(global_batch, mesh)
     first = 0 if mesh is None else mesh.data_mesh.rank * n
 
     def batch(step: int) -> Dict[str, torch.Tensor]:
         with trace.span("device_batcher"):
-            samples = []
+            draws = []
             for i in range(first, first + n):
                 with trace.span("device_batcher.draw"):
                     rng = np.random.default_rng((seed, 2, int(step), i))
-                    p = _scale_pos(_host_params(rng, regime), hw)
-                with trace.span("device_batcher.upload"):
-                    p = to_device(p, device)
+                    draws.append(_scale_pos(_host_params(rng, regime), hw))
+            with trace.span("device_batcher.upload"):
+                params = _upload(draws, device)
+            COUNTS["batches"] += 1
+            samples = []
+            for p in params:
                 with trace.span("device_batcher.render"):
                     samples.append(_render(hw, p))
             with trace.span("device_batcher.render"):

@@ -21,8 +21,9 @@ The spans, each child named after its parent:
   cast, device-to-host copy: waits for the forward);
 - ``capture.key``, ``capture.load``, ``capture.replay`` (the launch) and
   ``capture.record`` (warm-up and capture) inside ``Captured.__call__``;
-- ``device_batcher``: ``.draw`` (numpy draws), ``.upload`` (synchronous
-  copies of the draws), ``.render`` (rendering launches and the stack);
+- ``device_batcher``: ``.draw`` (a sample's numpy draws), ``.upload`` (the
+  batch's one copy of the draws, pinned and non-blocking on a GPU),
+  ``.render`` (a sample's rendering launches, then the stack);
 - ``train_step``: ``.draw`` (the augmentation's host draws),
   ``.schedule`` (``scheduler.step()``), and the ``capture.*`` spans;
 - ``trainer.feed`` around getting a batch in ``train()``, with
@@ -37,7 +38,8 @@ is the group's dict (the same object at every call), which its owner
 adds to in place. The kernel modules' ``LAUNCHES`` dicts are their
 ``launches.<module>`` groups; each ``Captured`` counts
 ``capture.<name>.captures`` (signatures recorded) and ``.replays``
-(signatures found).
+(signatures found); the device batcher counts ``device_batcher.batches``
+and ``.pinned_uploads``.
 """
 
 from __future__ import annotations

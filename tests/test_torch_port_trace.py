@@ -181,17 +181,22 @@ def test_predict_flow_spans():
 
 def test_device_batcher_spans():
     batcher = make_device_batcher(2, (32, 32), seed=3, device="cpu")
+    counts = trace.counters("device_batcher")
+    before = dict(counts)
     with trace.enabled():
         batch = batcher(0)
     assert batch["im1"].shape == (2, 32, 32, 3)
     [calls] = trace.totals("device_batcher")
     recs = trace.records()
-    assert _names(recs) == ["device_batcher"] + [
-        "device_batcher.draw", "device_batcher.upload",
-        "device_batcher.render"] * 2 + ["device_batcher.render"]
+    assert _names(recs) == (["device_batcher"]
+                            + ["device_batcher.draw"] * 2
+                            + ["device_batcher.upload"]
+                            + ["device_batcher.render"] * 3)
     assert {r.parent for r in recs[1:]} == {0}
     assert set(calls) == {"device_batcher", "device_batcher.draw",
                           "device_batcher.upload", "device_batcher.render"}
+    assert counts["batches"] == before["batches"] + 1
+    assert counts["pinned_uploads"] == before["pinned_uploads"]
 
 
 def test_loader_wait_span():
