@@ -28,9 +28,16 @@ steps with CUDA events. Then RAFT at full width: K1-K3 at its shapes
 repo's trained checkpoint at 448x1024 (24 K1 per forward) with its val EPE
 on synthetic-proof, its f32 forward against the CPU's, the trainer with the
 sequence loss (24 of each of K1-K3 per step), and the command line's RAFT
-``train``, ``predict`` and ``match``. Then the repo's trained PWC-Net
-checkpoint (``pwc_trained``: bf16 launches, val EPE on synthetic-proof's 256
-val pairs beside the TPU run's, f32 card vs CPU per level); the PWC-Net
+``train``, ``predict`` and ``match``; published RAFT's kernels against
+their plain ops (``allpairs_kernels``: K8, the all-pairs pyramid, and K9,
+its lookup, bf16 and f32, ragged grids, points outside every level, the
+Functions' gradients) and its 32-iteration forward at 440x1024
+(``allpairs_forward``: 1 K8 and 32 K9 launches, the captured forward's
+time, f32 card vs CPU) and its command line (``allpairs_cli``: ``train``
+under the in-scan sequence loss, ``predict``). Then the repo's trained
+PWC-Net checkpoint (``pwc_trained``: bf16 launches, val EPE on
+synthetic-proof's 256 val pairs beside the TPU run's, f32 card vs CPU per
+level); the PWC-Net
 with GroupNorm (``norm_forward``: bf16 448x1024, K1 5 and K4 0 launches, f32
 card vs CPU per level; ``norm_train``: K1-K3 5/5/5 a step through
 ``train()``, the f32 step against the CPU); the parity harness on the
@@ -2664,6 +2671,222 @@ TRAINED_HW = (384, 448)
 PWC_FWD_LAUNCHES = {"corr_fwd": 5, "stem_fwd": 1}
 
 
+# Published RAFT (raft_allpairs): K8 and K9 at the cell's 1/8 grid of a
+# 440x1024 pair (55x128, C = 256), ragged grids (odd, levels that floor to
+# one row, C = 8 below the bf16 tile's 16-byte chunk on the CUDA cores only),
+# (shape, levels); coordinates spread N(0, 4) around the grid with a point
+# far outside every level and one beyond the kernel's exact range.
+ALLPAIRS_SHAPES = [((1, 55, 128, 256), 4), ((2, 17, 19, 32), 4),
+                   ((1, 7, 9, 16), 2), ((1, 13, 21, 8), 3)]
+ALLPAIRS_SEED = 20
+ALLPAIRS_HW = (440, 1024)
+ALLPAIRS_ITERS = 32
+ALLPAIRS_LAUNCHES = {"corr_pyramid": 1, "corr_lookup": ALLPAIRS_ITERS}
+# K8, K9 against their plain ops: f32 the sum order; bf16 one rounding of
+# an f32 value, at most half a bf16 step (2**-9) of it. K9 in f32: the
+# plain op normalizes a point by size - 1 and grid_sample unnormalizes it,
+# which moves it by a few f32 steps of its coordinate (3e-5 px at x = 128),
+# and a sample by up to twice that of the map's max.
+ALLPAIRS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+K9_F32_TOL = 1e-4
+
+
+def allpairs_coords(n, h, w, gen, dev):
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    c = torch.stack([xs, ys], -1)[None].repeat(n, 1, 1, 1)
+    c += 4.0 * torch.randn(c.shape, generator=gen, device=dev)
+    c[:, 0, 0] = torch.tensor([-1000.5, 3.25], device=dev)
+    c[:, -1, -1] = torch.tensor([2.0e8, -3.0e8], device=dev)
+    return c
+
+
+def allpairs_kernels(timer, dev) -> dict:
+    """allpairs_kernels: K8 (the all-pairs pyramid) and K9 (its lookup)
+    against their plain ops on the card, bf16 and f32, at ALLPAIRS_SHAPES;
+    each Function's gradients against the plain ops' autograd; at 55x128
+    bf16 the time, bound and plain time of each (K8 one a pair, K9 one an
+    iteration)."""
+    from flowbench import costs, costs_allpairs
+    from pwcnet_tpu_torch.ops.corr_lookup import corr_lookup_ref
+    from pwcnet_tpu_torch.ops.corr_pyramid import corr_pyramid_ref
+    from pwcnet_tpu_torch.ops.kernels import corr_lookup_kernel as lk
+    from pwcnet_tpu_torch.ops.kernels import corr_pyramid_kernel as pk
+    gen = torch.Generator(device=dev).manual_seed(ALLPAIRS_SEED)
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape, levels in ALLPAIRS_SHAPES:
+            if dtype == torch.bfloat16 and shape[-1] % 8:
+                continue
+            n, h, w, c = shape
+            f1, f2 = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                      for _ in range(2))
+            coords = allpairs_coords(n, h, w, gen, dev)
+            with torch.inference_mode():
+                pyr = pk.corr_pyramid_cuda(f1, f2, levels)
+                pyr_ref = corr_pyramid_ref(f1, f2, levels)
+                look = lk.corr_lookup_cuda(pyr_ref, coords, 4)
+                look_ref = corr_lookup_ref(pyr_ref, coords, 4)
+            torch.cuda.synchronize()
+            errs = {"k8": [rel_err(a, b)[1] for a, b in zip(pyr, pyr_ref)],
+                    "k9": rel_err(look, look_ref)[1]}
+            tol = ALLPAIRS_TOL[dtype]
+            tol9 = K9_F32_TOL if dtype == torch.float32 else tol
+            row = {"phase": "allpairs_kernels", "shape": shape,
+                   "levels": levels, "dtype": str(dtype),
+                   "k8_rel_err_per_level": errs["k8"],
+                   "k9_rel_err": errs["k9"], "tol": tol, "k9_tol": tol9,
+                   "k9_far_point_zero": bool(look[:, 0, 0].abs().max() == 0)}
+            if dtype == torch.bfloat16 and shape[1:3] == (55, 128):
+                with torch.inference_mode():
+                    k8 = timer(lambda: pk.corr_pyramid_cuda(f1, f2, levels))
+                    k9 = timer(lambda: lk.corr_lookup_cuda(pyr, coords, 4))
+                    k8p = timer(lambda: corr_pyramid_ref(f1, f2, levels),
+                                inner=2)
+                    k9p = timer(lambda: corr_lookup_ref(pyr, coords, 4),
+                                inner=2)
+                k8b = costs.bound_ms(*costs_allpairs.pyramid_cost(
+                    (n, h, w, c, levels)))
+                k9b = costs.bound_ms(*costs_allpairs.lookup_cost(
+                    (n, h, w, levels, 4)))
+                row.update(k8_ms=k8, k8_bound_ms=k8b, k8_plain_ms=k8p,
+                           k9_ms=k9, k9_bound_ms=k9b, k9_plain_ms=k9p,
+                           k8_roofline=k8b / k8, k9_roofline=k9b / k9)
+                timed = row
+            emit(row)
+            if not (max(errs["k8"]) <= tol and errs["k9"] <= tol9
+                    and row["k9_far_point_zero"]):
+                raise AssertionError(f"K8/K9 disagree with their plain ops "
+                                     f"at {shape} {dtype}: {errs}")
+    # The Functions' gradients (f32, a small grid).
+    f1, f2 = (torch.randn((1, 17, 19, 32), generator=gen, device=dev)
+              .requires_grad_() for _ in range(2))
+    coords = allpairs_coords(1, 17, 19, gen, dev)
+    gs = [torch.randn((1, 17 * 19, 17 >> lv, 19 >> lv), generator=gen,
+                      device=dev) for lv in range(4)]
+    gl = torch.randn((1, 17, 19, 324), generator=gen, device=dev)
+    got = torch.autograd.grad(
+        sum((t * g).sum() for t, g in zip(pk.corr_pyramid_fn(f1, f2, 4), gs))
+        + (lk.corr_lookup_fn(corr_pyramid_ref(f1, f2, 4), coords) * gl)
+        .sum(), (f1, f2))
+    want = torch.autograd.grad(
+        sum((t * g).sum() for t, g in zip(corr_pyramid_ref(f1, f2, 4), gs))
+        + (corr_lookup_ref(corr_pyramid_ref(f1, f2, 4), coords) * gl).sum(),
+        (f1, f2))
+    grad_errs = [rel_err(a, b)[1] for a, b in zip(got, want)]
+    emit({"phase": "allpairs_grads", "rel_err": grad_errs,
+          "tol": ALLPAIRS_TOL[torch.float32]})
+    if not max(grad_errs) <= ALLPAIRS_TOL[torch.float32]:
+        raise AssertionError(f"K8/K9 Functions' gradients: {grad_errs}")
+    return timed
+
+
+def allpairs_cli(out_dir: str) -> None:
+    """allpairs_cli: the command line with published RAFT, in subprocesses
+    on the card: train on synthetic-proof's device batches (bf16, 3 steps of
+    2 pairs cropped to 256x320, the in-scan sequence loss: the step
+    captured, the backward through K8's and K9's Functions), then predict
+    with model.family=raft_allpairs on the repo's parity pair."""
+    import shutil
+    from pwcnet_tpu_torch.io import read_flo
+    fixtures = os.path.join(ROOT, "tests", "fixtures", "parity")
+    log_dir = os.path.join(RUN_DIR, "cli_allpairs")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    final, train_s = run_cli("train", "--preset", "synthetic-proof",
+                             "--max-steps", "3", "model.family=raft_allpairs",
+                             "train.loss=sequence_inscan",
+                             "train.global_batch=2",
+                             "data.augment.crop_hw=(256,320)",
+                             "train.summary_interval=1",
+                             f"train.log_dir={log_dir}")
+    recs = _metrics(log_dir)
+    shutil.rmtree(log_dir)
+    train_ok = final["step"] == 3 and _finite_steps(recs)
+    flo = os.path.join(out_dir, "cli_allpairs_predict.flo")
+    pred, pred_s = run_cli("predict", "--im1",
+                           os.path.join(fixtures, "im1.png"), "--im2",
+                           os.path.join(fixtures, "im2.png"), "--out", flo,
+                           "model.family=raft_allpairs")
+    flow = read_flo(flo)
+    pred_ok = flow.shape == (128, 160, 2) and bool(np.isfinite(flow).all())
+    emit({"phase": "allpairs_cli", "train": recs, "train_ok": train_ok,
+          "train_s": train_s, "predict": pred, "predict_ok": pred_ok,
+          "predict_s": pred_s})
+    if not (train_ok and pred_ok):
+        raise AssertionError("the command line's published-RAFT train or "
+                             "predict gave a wrong result")
+
+
+def allpairs_model(dtype, device, iters=ALLPAIRS_ITERS):
+    """Published RAFT with the port's seeded init (seed 0)."""
+    from pwcnet_tpu_torch.models import RAFTAllPairs
+    return RAFTAllPairs(num_iters=iters, dtype=dtype, device=device).eval()
+
+
+def allpairs_forward(dev, timer, smi) -> dict:
+    """allpairs_forward: published RAFT (bf16, 32 iterations) on a 440x1024
+    pair: one eager forward's launches (1 K8, 32 K9), the flow's shape and
+    finiteness, the captured forward's device time, predict_flow's wall time
+    at 436x1024, the profiler's largest kernels; then the f32 card forward
+    (K8, K9) against the CPU's plain ops at 192x256, 4 iterations."""
+    from pwcnet_tpu_torch import predict_flow
+    from pwcnet_tpu_torch.ops.kernels import corr_lookup_kernel as lk
+    from pwcnet_tpu_torch.ops.kernels import corr_pyramid_kernel as pk
+    from pwcnet_tpu_torch.train.evaluate import infer_flow
+    model = allpairs_model(torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(ALLPAIRS_SEED)
+    im1 = torch.rand((1, *ALLPAIRS_HW, 3), generator=gen, device=dev)
+    im2 = torch.roll(im1, (2, 3), (1, 2))
+    with torch.inference_mode():
+        model(im1, im2, train=False)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches(pk, lk)
+        flows = model(im1, im2, train=False)
+        torch.cuda.synchronize()
+        launches = {k: v for mod in (pk, lk) for k, v in mod.LAUNCHES.items()
+                    if v}
+        finite = bool(torch.isfinite(flows[-1]).all())
+        eager_dev = timer(lambda: model(im1, im2, train=False), reps=5,
+                          inner=1)
+        busy, n_k, top = profile_kernels(lambda: model(im1, im2,
+                                                       train=False))
+        infer_flow(model, im1, im2)  # capture
+        captured_dev = timer(lambda: infer_flow(model, im1, im2), reps=10,
+                             inner=2)
+    a = im1[0, :436].cpu().numpy()
+    b = im2[0, :436].cpu().numpy()
+    predict_wall = wall_ms(lambda: predict_flow(model, a, b), reps=20)
+    emit({"phase": "allpairs_forward", "dtype": "bfloat16",
+          "hw": list(ALLPAIRS_HW), "iters": ALLPAIRS_ITERS,
+          "launches": launches, "finite": finite,
+          "flow_shape": list(flows[-1].shape),
+          "eager_device_ms": eager_dev, "captured_device_ms": captured_dev,
+          "profiler_busy_ms": busy, "kernel_launches": n_k, "top": top,
+          "predict_flow_ms_wall_436x1024": predict_wall,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "nvidia_smi": smi})
+    if not finite or tuple(flows[-1].shape) != (1, *ALLPAIRS_HW, 2):
+        raise AssertionError(f"bad published-RAFT flow: finite={finite} "
+                             f"{tuple(flows[-1].shape)}")
+    if launches != ALLPAIRS_LAUNCHES:
+        raise AssertionError(f"expected {ALLPAIRS_LAUNCHES} per forward, got"
+                             f" {launches}")
+    c1, c2 = (torch.rand((1, 192, 256, 3), generator=gen, device=dev)
+              for _ in range(2))
+    with torch.inference_mode():
+        f_card = allpairs_model(torch.float32, dev, 4)(c1, c2, train=False)
+        f_cpu = allpairs_model(torch.float32, "cpu", 4)(
+            c1.cpu(), c2.cpu(), train=False)
+    err = rel_err(f_card[-1].cpu(), f_cpu[-1])[1]
+    emit({"phase": "allpairs_forward_f32_card_vs_cpu", "hw": [192, 256],
+          "iters": 4, "rel_err": err, "tol": FWD_TOL})
+    if not err <= FWD_TOL:
+        raise AssertionError(f"published RAFT card and CPU forwards "
+                             f"disagree: {err}")
+    return {"launches": launches, "captured_device_ms": captured_dev}
+
+
 def trained_pwcnet(dtype, device):
     """The port's PWC-Net with the repo's trained weights."""
     from pwcnet_tpu_torch import PWCNet
@@ -4422,6 +4645,12 @@ def main() -> int:
         raft_fwd = raft_forward(dev, timer, smi)
         raft_tr = raft_train(out_dir, dev, smi, timer)
         raft_cli(out_dir, roots)
+
+        # -- 5d'. Published RAFT: K8 and K9 against their plain ops, the
+        # 32-iteration forward at 440x1024, the command line ----------------
+        allpairs_kernels(timer, dev)
+        allpairs_forward(dev, timer, smi)
+        allpairs_cli(out_dir)
 
         # -- 5e. The trained PWC-Net checkpoint; data-parallel training on
         # two gloo ranks sharing the card ------------------------------------

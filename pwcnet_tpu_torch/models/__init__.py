@@ -1,4 +1,4 @@
-"""The port's models: PWC-Net and RAFT."""
+"""The port's models: PWC-Net, RAFT and published RAFT (all-pairs)."""
 
 from pwcnet_tpu_torch.models.pwcnet import (  # noqa: F401
     ContextNetwork,
@@ -7,3 +7,4 @@ from pwcnet_tpu_torch.models.pwcnet import (  # noqa: F401
     PWCNet,
 )
 from pwcnet_tpu_torch.models.raft import RAFT  # noqa: F401
+from pwcnet_tpu_torch.models.raft_allpairs import RAFTAllPairs  # noqa: F401

@@ -57,6 +57,7 @@ from pwcnet_tpu_torch.data.pipeline import Loader
 from pwcnet_tpu_torch.data.synthetic import make_device_batcher
 from pwcnet_tpu_torch.models.pwcnet import PWCNet, _resolve_device
 from pwcnet_tpu_torch.models.raft import RAFT
+from pwcnet_tpu_torch.models.raft_allpairs import RAFTAllPairs
 from pwcnet_tpu_torch.parallel.mesh import (GridMesh, MeshConfig,
                                             initialize_distributed, make_mesh,
                                             process_count, process_index)
@@ -78,9 +79,10 @@ def _flag(v) -> bool:
     return bool(v)
 
 
-def build_model(cfg: Config, device=None) -> Union[PWCNet, RAFT]:
-    """The config's PWC-Net or RAFT, with weights drawn from
-    ``cfg.train.seed``."""
+def build_model(cfg: Config, device=None
+                ) -> Union[PWCNet, RAFT, RAFTAllPairs]:
+    """The config's PWC-Net, RAFT or published RAFT (``raft_allpairs``),
+    with weights drawn from ``cfg.train.seed``."""
     m = cfg.model
     dtype = torch.bfloat16 if m.dtype == "bfloat16" else torch.float32
     generator = torch.Generator().manual_seed(cfg.train.seed)
@@ -90,6 +92,10 @@ def build_model(cfg: Config, device=None) -> Union[PWCNet, RAFT]:
         return RAFT(num_iters=m.raft_iters, corr_radius=m.raft_radius,
                     corr_backend=m.corr_backend, dtype=dtype, device=device,
                     generator=generator, **kw)
+    if m.family == "raft_allpairs":
+        return RAFTAllPairs(num_iters=m.raft_iters, corr_radius=m.raft_radius,
+                            corr_backend=m.corr_backend, dtype=dtype,
+                            device=device, generator=generator)
     if m.family != "pwcnet":
         raise ValueError(f"unknown model family {m.family!r}")
     return PWCNet(

@@ -212,7 +212,8 @@ def test_loader_wait_span():
 
 # -- counters ------------------------------------------------------------------
 
-KERNEL_MODULES = ["conv_folded", "cost_volume", "stem", "warp_corr"]
+KERNEL_MODULES = ["conv_folded", "cost_volume", "stem", "warp_corr",
+                  "corr_pyramid", "corr_lookup"]
 
 
 @pytest.mark.parametrize("name", KERNEL_MODULES)
