@@ -16,9 +16,11 @@ reads it, ``totals()`` sums it per top-level span, ``reset()`` clears it.
 
 The spans, each child named after its parent:
 
-- ``predict_flow``: ``.pad``, ``.upload`` (the two host-to-device copies,
-  which block the host), ``.run`` (``infer_flow``), ``.fetch`` (crop,
-  cast, device-to-host copy: waits for the forward);
+- ``predict_flow``: ``.pad`` (reading the frames, acquiring the model's
+  staging buffers of their shape), ``.upload`` (the frames' copy into the
+  host buffer, pinned on a GPU, and the issue of its one non-blocking copy
+  into the padded device buffer), ``.run`` (``infer_flow``), ``.fetch``
+  (crop, cast, device-to-host copy: waits for the forward);
 - ``capture.key``, ``capture.load``, ``capture.replay`` (the launch) and
   ``capture.record`` (warm-up and capture) inside ``Captured.__call__``;
 - ``device_batcher``: ``.draw`` (a sample's numpy draws), ``.upload`` (the
@@ -39,7 +41,8 @@ adds to in place. The kernel modules' ``LAUNCHES`` dicts are their
 ``launches.<module>`` groups; each ``Captured`` counts
 ``capture.<name>.captures`` (signatures recorded) and ``.replays``
 (signatures found); the device batcher counts ``device_batcher.batches``
-and ``.pinned_uploads``.
+and ``.pinned_uploads``; ``predict_flow`` counts ``predict_flow.calls``
+and ``.pinned_uploads`` (one a call on a GPU, none on the CPU).
 """
 
 from __future__ import annotations

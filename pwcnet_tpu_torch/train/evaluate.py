@@ -4,11 +4,20 @@ inference (``predict_flow``: pad to the model's divisor, forward with
 ``train=False``, upsample the finest flow to full resolution, undo the
 supervision scale, crop), for PWC-Net and RAFT. On a CUDA model both run
 through the model's captured graphs (``capture.py``) unless the caller
-passes ``capture=False``."""
+passes ``capture=False``.
+
+``predict_flow`` stages a pair through buffers that live with the model
+(``_Stage``): the frames are copied once into a host buffer (pinned for a
+GPU) and cross to the device in one non-blocking copy, into the interior
+of a device buffer laid out as the padded pair whose margin was zeroed
+when it was made. So the padding costs no host work and no copy.
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import threading
+import weakref
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,28 +61,96 @@ def infer_flow(model: Union[PWCNet, RAFT], a: torch.Tensor, b: torch.Tensor,
     return _full_res(model, a, b)
 
 
+COUNTS = trace.counters("predict_flow", ("calls", "pinned_uploads"))
+
+
+class _Stage:
+    """The buffers that carry pairs of one frame shape to one device:
+    ``host``, the pair as sent ((2, H, W, C) f32, pinned for a GPU);
+    ``padded``, the pair as the model reads it ((2, H', W', C) f32 on the
+    device, H' and W' the multiples of ``div`` that ``pad_to_divisible``
+    gives, the bottom and right margin zeroed here and never written
+    again); on a GPU ``copied``, the event of the last copy from one to the
+    other, which the next call waits for before it writes ``host``; and
+    ``lock``, which a call holds from writing ``host`` until its answer is
+    fetched, so that calls from several threads take turns."""
+
+    def __init__(self, shape: Tuple[int, int, int], div: int,
+                 device: torch.device):
+        h, w, c = shape
+        self.pinned = device.type == "cuda"
+        self.host = torch.empty((2, h, w, c), dtype=torch.float32,
+                                pin_memory=self.pinned)
+        self.padded = torch.zeros(
+            (2, -(-h // div) * div, -(-w // div) * div, c),
+            dtype=torch.float32, device=device)
+        self.copied = torch.cuda.Event() if self.pinned else None
+        self.lock = threading.Lock()
+
+
+# Each model's stages, by device and frame shape, for as long as the model
+# lives (as ``capture.model_captured`` keeps its graphs).
+_STAGES: "weakref.WeakKeyDictionary[torch.nn.Module, Dict[tuple, _Stage]]" \
+    = weakref.WeakKeyDictionary()
+
+
+def _stage(model: Union[PWCNet, RAFT], shape: Tuple[int, ...]) -> _Stage:
+    """``model``'s stage of frames of ``shape`` on its device, made on
+    first use."""
+    per = _STAGES.setdefault(model, {})
+    key = (model.device, shape)
+    if key not in per:
+        per[key] = _Stage(shape, model.pad_divisor, model.device)
+    return per[key]
+
+
 @torch.inference_mode()
 def predict_flow(model: Union[PWCNet, RAFT], im1: np.ndarray,
                  im2: np.ndarray, capture: Optional[bool] = None
                  ) -> np.ndarray:
     """(H, W, 3) images in [0, 1] -> (H, W, 2) f32 pixel flow at input
-    resolution, on the model's device (through ``infer_flow``). Spans
-    ``predict_flow`` and its ``.pad``, ``.upload``, ``.run``, ``.fetch``
-    (``trace.py``)."""
+    resolution, on the model's device (through ``infer_flow``), as a fresh
+    array that the caller owns. The pair goes through the model's
+    ``_Stage`` of its shape (module docstring). Spans ``predict_flow`` and
+    its ``.pad`` (reading the frames, acquiring the stage), ``.upload``
+    (the copy into the host buffer and the issue of the copy to the
+    device), ``.run``, ``.fetch``; counters ``predict_flow.calls`` and
+    ``.pinned_uploads`` (``trace.py``)."""
     with trace.span("predict_flow"):
-        div = model.pad_divisor
+        COUNTS["calls"] += 1
         with trace.span("predict_flow.pad"):
-            p1, (h, w) = pad_to_divisible(
-                np.asarray(im1, np.float32)[None], div)
-            p2, _ = pad_to_divisible(np.asarray(im2, np.float32)[None], div)
-        with trace.span("predict_flow.upload"):
-            # A copy: p1 may be read-only.
-            a = torch.tensor(p1, device=model.device)
-            b = torch.tensor(p2, device=model.device)
-        with trace.span("predict_flow.run"):
-            full = infer_flow(model, a, b, capture)
-        with trace.span("predict_flow.fetch"):
-            return full[0, :h, :w].float().cpu().numpy()
+            # No copy of an f32 frame; another dtype is converted here.
+            f1, f2 = np.asarray(im1, np.float32), np.asarray(im2, np.float32)
+            if f1.ndim != 3 or f2.shape != f1.shape:
+                raise ValueError(f"predict_flow takes two (H, W, C) frames "
+                                 f"of one shape; got {f1.shape} and "
+                                 f"{f2.shape}")
+            h, w = f1.shape[:2]
+            stage = _stage(model, f1.shape)
+        with stage.lock:
+            with trace.span("predict_flow.upload"):
+                if stage.pinned:  # the last copy out of ``host`` has run
+                    stage.copied.synchronize()
+                # numpy's copy, on this thread: torch's spreads over its
+                # thread pool and waits for the slowest thread, which on the
+                # eight cores of an H100 host put a tail of calls several
+                # milliseconds long on a stream.
+                host = stage.host.numpy()
+                np.copyto(host[0], f1)
+                np.copyto(host[1], f2)
+                # Into a strided view: on a GPU torch lands the bytes in one
+                # block, then places them with one copy on the device.
+                stage.padded[:, :h, :w].copy_(stage.host,
+                                              non_blocking=stage.pinned)
+                if stage.pinned:
+                    stage.copied.record(
+                        torch.cuda.current_stream(stage.padded.device))
+                    COUNTS["pinned_uploads"] += 1
+            with trace.span("predict_flow.run"):
+                full = infer_flow(model, stage.padded[:1], stage.padded[1:],
+                                  capture)
+            with trace.span("predict_flow.fetch"):
+                return full[0, :h, :w].float().cpu().numpy()
 
 
 def evaluate_dataset(model: Union[PWCNet, RAFT], dataset: FlowDataset,
