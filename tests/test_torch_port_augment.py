@@ -36,14 +36,9 @@ from pwcnet_tpu_torch.train.schedule import ScheduleConfig, make_optimizer
 from pwcnet_tpu_torch.train.state import TrainState
 from pwcnet_tpu_torch.train.step import make_train_step
 
+from torch_port_util import one_thread, random_batch, to_torch
+
 KEYS = ("im1", "im2", "flow", "valid")
-
-
-def _batch(rng, n, hw):
-    return {"im1": rng.random((n, *hw, 3), np.float32),
-            "im2": rng.random((n, *hw, 3), np.float32),
-            "flow": (rng.standard_normal((n, *hw, 2)) * 3).astype(np.float32),
-            "valid": (rng.random((n, *hw)) > 0.3).astype(np.float32)}
 
 
 def _jax_draws(key, n, hw, cfg):
@@ -92,7 +87,7 @@ def test_apply_augment_matches_jax(case):
     cfg = dataclasses.replace(AugmentConfig(crop_hw=(16, 24)),
                               **AUG_CASES[case])
     rng = np.random.default_rng(case)
-    batch = _batch(rng, 4, (22, 31))
+    batch = random_batch(rng, 4, (22, 31), 0.3)
     key = jax.random.key(100 + case)
     want = jaug.augment_batch({k: jnp.asarray(v) for k, v in batch.items()},
                               key, jaug.AugmentConfig(**dataclasses.asdict(
@@ -156,8 +151,7 @@ def test_draws_have_the_configured_moments():
 
 def test_augment_batch_replays_from_the_generator_state():
     rng = np.random.default_rng(3)
-    batch = {k: torch.from_numpy(v) for k, v in
-             _batch(rng, 3, (20, 28)).items()}
+    batch = to_torch(random_batch(rng, 3, (20, 28), 0.3))
     cfg = AugmentConfig(crop_hw=(12, 16))
     gen = torch.Generator().manual_seed(4)
     state = gen.get_state()
@@ -173,14 +167,6 @@ def test_augment_batch_replays_from_the_generator_state():
 # One f32 train step with augmentation, against JAX's
 # ---------------------------------------------------------------------------
 
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_augmented_train_step_matches_jax(one_thread):
     """One step. hflip always, no vflip, no photometric jitter and the
     crop the whole sample: JAX's draws then fix nothing that the port draws
@@ -188,7 +174,7 @@ def test_augmented_train_step_matches_jax(one_thread):
     hw = (64, 64)
     cfg = AugmentConfig(crop_hw=hw, hflip_prob=1.0, vflip_prob=0.0,
                         photometric=False)
-    batch = _batch(np.random.default_rng(11), 2, hw)
+    batch = random_batch(np.random.default_rng(11), 2, hw, 0.3)
     small = dict(num_levels=3, output_level=2)
     jm = JaxPWCNet(corr_backend="lax", **small)
     params = jax.jit(jm.init)(jax.random.key(0), batch["im1"], batch["im2"])
@@ -253,8 +239,7 @@ def _nan_setup():
                    dtype=torch.float32)
     opt, sched = make_optimizer(model.parameters(), ScheduleConfig())
     step = make_train_step(model, opt, sched)
-    batch = {k: torch.from_numpy(v) for k, v in _batch(rng, 2, (32, 32)
-                                                       ).items()}
+    batch = to_torch(random_batch(rng, 2, (32, 32), 0.3))
     return model, step, TrainState.create(model, opt, sched, seed=1), batch
 
 

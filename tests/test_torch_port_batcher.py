@@ -14,6 +14,8 @@ import torch
 
 from pwcnet_tpu_torch.data import synthetic as tsyn
 
+import torch_port_util  # noqa: F401  (this process's share of the cores)
+
 HW = (24, 40)
 SEED = 2 ** 31 + 7
 

@@ -41,20 +41,13 @@ from pwcnet_tpu_torch.ops.cost_volume import (corr_band_ref,
                                               corr_bwd_f1_band_ref)
 from pwcnet_tpu_torch.ops.warp import warp_bilinear, warp_ext_ref
 
+from torch_port_util import rel_err, to_torch
+
 TOL = 1e-5
 BF16_STEP = 2.0 ** -8
 # chip_smoke.py's ragged correlation shapes (W = 13, 33, 70; C = 5, 196,
 # 32) and a width of 17 at C = 196.
 RAGGED = [(2, 7, 13, 5), (1, 5, 17, 196), (1, 9, 33, 196), (3, 20, 70, 32)]
-
-
-def _t(a):
-    return torch.from_numpy(np.asarray(a))
-
-
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / np.abs(want).max()
 
 
 def _bwd_inputs(shape, d, seed):
@@ -83,7 +76,7 @@ def _jax_grads(f1, f2, g, d, dtype=jnp.float32, corr=None):
 @pytest.mark.parametrize("shape", [(2, 9, 37, 24), (1, 6, 16, 8)])
 def test_bwd_band_matches_jax_vjp_per_displacement(shape, d):
     f1, f2, g = _bwd_inputs(shape, d, d)
-    got = corr_bwd_band_ref(_t(g), _t(f1), d)
+    got = corr_bwd_band_ref(to_torch(g), to_torch(f1), d)
     want = _jax_grads(f1, f2, g, d)[1]
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
@@ -93,7 +86,7 @@ def test_bwd_band_matches_jax_vjp_per_displacement(shape, d):
 @pytest.mark.parametrize("shape", RAGGED)
 def test_bwd_band_matches_jax_vjp_at_ragged_shapes(shape, d):
     f1, f2, g = _bwd_inputs(shape, d, 10 + d)
-    got = corr_bwd_band_ref(_t(g), _t(f1), d)
+    got = corr_bwd_band_ref(to_torch(g), to_torch(f1), d)
     np.testing.assert_allclose(got.numpy(), _jax_grads(f1, f2, g, d)[1],
                                atol=TOL, rtol=0)
 
@@ -125,7 +118,7 @@ def test_bwd_band_rejects_a_gradient_of_another_shape():
 @pytest.mark.parametrize("shape", [(2, 9, 37, 24), (1, 6, 16, 8)])
 def test_f1_band_matches_jax_vjp_per_displacement(shape, d):
     f1, f2, g = _bwd_inputs(shape, d, 20 + d)
-    got = corr_bwd_f1_band_ref(_t(g), _t(f2), d)
+    got = corr_bwd_f1_band_ref(to_torch(g), to_torch(f2), d)
     want = _jax_grads(f1, f2, g, d)[0]
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
@@ -135,7 +128,7 @@ def test_f1_band_matches_jax_vjp_per_displacement(shape, d):
 @pytest.mark.parametrize("shape", RAGGED)
 def test_f1_band_matches_jax_vjp_at_ragged_shapes(shape, d):
     f1, f2, g = _bwd_inputs(shape, d, 30 + d)
-    got = corr_bwd_f1_band_ref(_t(g), _t(f2), d)
+    got = corr_bwd_f1_band_ref(to_torch(g), to_torch(f2), d)
     np.testing.assert_allclose(got.numpy(), _jax_grads(f1, f2, g, d)[0],
                                atol=TOL, rtol=0)
 
@@ -164,10 +157,11 @@ def test_f1_band_matches_jax_pallas_kernel(shape, d):
     f1, f2, g = _bwd_inputs(shape, d, 40 + d)
     df1, df2 = _jax_grads(f1, f2, g, d, corr=lambda a, b: cost_volume_pallas(
         a, b, max_displacement=d, interpret=True))
-    np.testing.assert_allclose(corr_bwd_f1_band_ref(_t(g), _t(f2), d),
-                               df1, atol=TOL, rtol=0)
-    np.testing.assert_allclose(corr_bwd_band_ref(_t(g), _t(f1), d), df2,
-                               atol=TOL, rtol=0)
+    g, f1, f2 = to_torch(g), to_torch(f1), to_torch(f2)
+    np.testing.assert_allclose(corr_bwd_f1_band_ref(g, f2, d), df1, atol=TOL,
+                               rtol=0)
+    np.testing.assert_allclose(corr_bwd_band_ref(g, f1, d), df2, atol=TOL,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("g_shape", [(1, 4, 16, 49), (1, 4, 15, 81)])
@@ -217,10 +211,10 @@ def test_warped_band_matches_jax_fused(kind, dtype):
     want = warp_corr_fused(jnp.asarray(f1, jdt), jnp.asarray(f2, jdt),
                            jnp.asarray(flow), max_displacement=d,
                            interpret=True)
-    got = corr_band_ref(_t(f1).to(tdt),
-                        warp_bilinear(_t(f2).to(tdt), _t(flow)), d)
+    got = corr_band_ref(to_torch(f1).to(tdt),
+                        warp_bilinear(to_torch(f2).to(tdt), to_torch(flow)), d)
     assert got.dtype == tdt
-    assert _rel_err(got.float().numpy(),
+    assert rel_err(got.float().numpy(),
                     np.asarray(want.astype(jnp.float32))) <= tol
 
 
@@ -240,9 +234,9 @@ def test_warped_band_prepadded_matches_jax_fused_prepadded(kind, row0):
                               jnp.int32(row0), h, halo, d)
     want = warp_corr_fused_prepadded(jnp.asarray(f1), g, wm,
                                      max_displacement=d, interpret=True)
-    warped = warp_ext_ref(_t(f2e), _t(flow), row0, h, halo, d)
-    got = corr_band_ref(_t(f1), warped, d, prepadded=True)
-    assert _rel_err(got.numpy(), np.asarray(want)) <= TOL
+    warped = warp_ext_ref(to_torch(f2e), to_torch(flow), row0, h, halo, d)
+    got = corr_band_ref(to_torch(f1), warped, d, prepadded=True)
+    assert rel_err(got.numpy(), np.asarray(want)) <= TOL
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +250,8 @@ def _bwd_kernel_vs_model(shape, d, which):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
-    f1, f2, g = (_t(a).cuda().bfloat16() for a in _bwd_inputs(shape, d, 60))
+    f1, f2, g = (to_torch(a).cuda().bfloat16()
+                 for a in _bwd_inputs(shape, d, 60))
     need = (which == 1, which == 2)
     got, again = (ck.cost_volume_bwd_cuda(g, f1, f2, d, *need)[which - 1]
                   for _ in range(2))
@@ -293,9 +288,9 @@ def test_k6_kernel_matches_its_band_model(shape, kind):
     from pwcnet_tpu_torch.ops.kernels import warp_corr_kernel as wk
     rng = np.random.default_rng(70)
     n, h, w, _ = shape
-    f1, f2 = (_t(rng.standard_normal(shape).astype(np.float32)).cuda()
+    f1, f2 = (to_torch(rng.standard_normal(shape).astype(np.float32)).cuda()
               .bfloat16() for _ in range(2))
-    flow = _t(_flow(rng, n, h, w, kind, 4)).cuda()
+    flow = to_torch(_flow(rng, n, h, w, kind, 4)).cuda()
     got = wk.warp_corr_cuda(f1, f2, flow).float()
     want = corr_band_ref(f1, warp_bilinear(f2, flow)).float()
     torch.cuda.synchronize()

@@ -48,18 +48,13 @@ from pwcnet_tpu_torch.train.schedule import (ScheduleConfig,
 from pwcnet_tpu_torch.train.state import TrainState
 from pwcnet_tpu_torch.train.step import make_eval_step, make_train_step
 
+from torch_port_util import make_model, one_thread, random_batch, to_torch
+
 SMALL = dict(num_levels=3, output_level=2)
+FAMILY_KW = {"pwcnet": SMALL, "raft": dict(num_iters=1)}
 HW = (64, 48)
 SCHEDULE = dict(base_lr=1e-4, milestones=(2,), gamma=0.5)
 STEPS = 3
-
-
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -88,19 +83,6 @@ def emulated(monkeypatch):
                             lambda c, d, distributed=False: bool(c))
 
 
-def _batch(rng, n, hw):
-    h, w = hw
-    return {"im1": rng.random((n, h, w, 3), np.float32),
-            "im2": rng.random((n, h, w, 3), np.float32),
-            "flow": (rng.standard_normal((n, h, w, 2)) * 3).astype(
-                np.float32),
-            "valid": (rng.random((n, h, w)) > 0.2).astype(np.float32)}
-
-
-def _t(batch):
-    return {k: torch.from_numpy(v) for k, v in batch.items()}
-
-
 # ---------------------------------------------------------------------------
 # The augmentation from static buffers
 # ---------------------------------------------------------------------------
@@ -120,7 +102,7 @@ def test_static_buffer_augmentation_equals_augment_batch(case):
     transform: bit for bit ``augment_batch`` at the same generator state,
     which both leave in the same state."""
     cfg = AUG_CASES[case]
-    batch = _t(_batch(np.random.default_rng(case), 3, HW))
+    batch = to_torch(random_batch(np.random.default_rng(case), 3, HW, 0.2))
     g_want, g_got = (torch.Generator().manual_seed(7 + case)
                      for _ in range(2))
     n_want, n_got = (torch.Generator() for _ in range(2))
@@ -148,15 +130,8 @@ def test_static_buffer_augmentation_equals_augment_batch(case):
 # The train step's captured body, run from static buffers
 # ---------------------------------------------------------------------------
 
-def _model(family, seed=0):
-    gen = torch.Generator().manual_seed(seed)
-    if family == "raft":
-        return RAFT(num_iters=1, device="cpu", generator=gen)
-    return PWCNet(device="cpu", generator=gen, **SMALL)
-
-
 def _run_steps(family, capture, aug, grad_clip=0.0, batch=None, model=None):
-    model = model or _model(family)
+    model = model or make_model(family, **FAMILY_KW[family])
     opt, sched = make_optimizer(model.parameters(),
                                 ScheduleConfig(**SCHEDULE))
     loss = "sequence" if family == "raft" else "multiscale"
@@ -165,8 +140,8 @@ def _run_steps(family, capture, aug, grad_clip=0.0, batch=None, model=None):
     state = TrainState.create(model, opt, sched, seed=3)
     metrics = []
     for i in range(STEPS):
-        b = batch if batch is not None else _t(_batch(
-            np.random.default_rng(100 + i), 2, HW))
+        b = batch if batch is not None else to_torch(random_batch(
+            np.random.default_rng(100 + i), 2, HW, 0.2))
         state, m = step(state, b)
         metrics.append({k: v.clone() for k, v in m.items()})
     return metrics, state
@@ -210,7 +185,7 @@ def test_captured_train_step_matches_jax(emulated, one_thread):
     at test_torch_port_train.py's tolerances (metrics within 1e-5 of
     JAX's, over the first two steps, as test_train_step_metrics_match_jax
     compares them)."""
-    batch = _batch(np.random.default_rng(5), 2, HW)
+    batch = random_batch(np.random.default_rng(5), 2, HW, 0.2)
     jm = JaxPWCNet(corr_backend="lax", **SMALL)
     params = jax.jit(jm.init)(jax.random.key(0), batch["im1"], batch["im2"])
     model = PWCNet(device="cpu", **SMALL)
@@ -222,7 +197,8 @@ def test_captured_train_step_matches_jax(emulated, one_thread):
     for _ in range(2):
         st, m = jstep(st, batch)
         want.append({k: float(v) for k, v in m.items()})
-    got, _ = _run_steps("pwcnet", True, None, batch=_t(batch), model=model)
+    got, _ = _run_steps("pwcnet", True, None, batch=to_torch(batch),
+                        model=model)
     for g, w in zip(got, want):
         for k in w:
             assert abs(float(g[k]) - w[k]) <= 1e-5 * abs(w[k]), (k, g, w)
@@ -232,7 +208,7 @@ def test_captured_train_step_keeps_a_graph_per_signature(emulated,
                                                          one_thread):
     """A new batch shape is a new signature: its first step is eager, its
     second captured; the first shape's entry is replayed again after it."""
-    model = _model("pwcnet")
+    model = make_model("pwcnet", **SMALL)
     opt, sched = make_optimizer(model.parameters(),
                                 ScheduleConfig(**SCHEDULE))
     step = make_train_step(model, opt, sched, capture=True)
@@ -249,8 +225,8 @@ def test_captured_train_step_keeps_a_graph_per_signature(emulated,
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(Captured, "__call__", counted)
         for n, h, w in shapes:
-            state, _ = step(state, _t(_batch(np.random.default_rng(h), n,
-                                             (h, w))))
+            state, _ = step(state, to_torch(random_batch(
+                np.random.default_rng(h), n, (h, w), 0.2)))
     assert calls == [(2, 64, 48), (1, 32, 48), (2, 64, 48)]
     assert state.step == len(shapes)
 
@@ -314,7 +290,7 @@ def test_captured_eval_and_inference_equal_eager(emulated, one_thread,
     second size), ``predict_flow`` and ``match_two_view`` give the same
     numbers captured and eager; each model's graphs are its own, one
     entry per padded shape."""
-    model = _model(family)
+    model = make_model(family, **FAMILY_KW[family])
     ds = SyntheticFlow(length=3, hw=HW, split="val")
     rows = {c: evaluate_dataset(model, ds, batch=2, capture=c,
                                 return_per_sample=True)
@@ -339,7 +315,7 @@ def test_captured_eval_and_inference_equal_eager(emulated, one_thread,
 def test_captured_outputs_are_fresh_tensors(emulated):
     """A replay's outputs are clones: a kept result survives the next
     call (``evaluate_dataset`` keeps every batch's per-sample rows)."""
-    model = _model("pwcnet")
+    model = make_model("pwcnet", **SMALL)
     a, b = (torch.rand((1, *HW, 3), generator=torch.Generator().manual_seed(
         s)) for s in (1, 2))
     first = infer_flow(model, a, b, capture=True)
@@ -354,7 +330,7 @@ def test_captured_outputs_are_fresh_tensors(emulated):
 # ---------------------------------------------------------------------------
 
 def test_signature_separates_shapes_dtypes_static_args_and_models():
-    model = _model("pwcnet")
+    model = make_model("pwcnet", **SMALL)
     x = torch.zeros((1, *HW, 3))
     base = signature(model, x, x, train=False)
     assert signature(model, x.clone(), torch.ones_like(x), train=False) \
@@ -365,7 +341,7 @@ def test_signature_separates_shapes_dtypes_static_args_and_models():
         "static": signature(model, x, x, train=True),
         "kwarg": signature(model, x, x),
         "positional": signature(model, x, x, False),
-        "rebuilt": signature(_model("pwcnet"), x, x, train=False),
+        "rebuilt": signature(make_model("pwcnet", **SMALL), x, x, train=False),
     }
     with torch.no_grad():
         different["grad_mode"] = signature(model, x, x, train=False)
@@ -375,7 +351,7 @@ def test_signature_separates_shapes_dtypes_static_args_and_models():
     assert base not in keys and len(set(keys)) == len(keys), different
     # load_state_dict copies in place: the same key. A moved parameter
     # (new storage, as .to() gives) is a new key.
-    model.load_state_dict(_model("pwcnet", seed=1).state_dict())
+    model.load_state_dict(make_model("pwcnet", 1, **SMALL).state_dict())
     assert signature(model, x, x, train=False) == base
     p = next(model.parameters())
     p.data = p.data.clone()
@@ -389,15 +365,15 @@ def test_model_cache_lives_with_the_model(emulated):
     """A model's graphs go with the model, also after it ran through the
     captured inference forward and eval step: an entry holds its module
     argument weakly."""
-    model = _model("pwcnet")
+    model = make_model("pwcnet", **SMALL)
     f = lambda m, a: a  # noqa: E731
     c = model_captured(model, "f", f)
     assert model_captured(model, "f", f) is c
-    assert model_captured(_model("pwcnet"), "f", f) is not c
+    assert model_captured(make_model("pwcnet", **SMALL), "f", f) is not c
     x = torch.rand((1, *HW, 3), generator=torch.Generator().manual_seed(0))
     infer_flow(model, x, x, capture=True)
-    make_eval_step(model, capture=True)(_t(_batch(
-        np.random.default_rng(0), 1, HW)))
+    make_eval_step(model, capture=True)(to_torch(random_batch(
+        np.random.default_rng(0), 1, HW, 0.2)))
     per = capture_mod._BY_MODEL[model]
     assert len(per["inference forward"].entries) == 1
     assert len(per["eval step"].entries) == 1
@@ -412,7 +388,7 @@ def test_model_cache_lives_with_the_model(emulated):
 def test_make_capturable_leaves_cpu_optimizers_alone():
     """``capturable`` is CUDA-only: on CPU parameters ``make_capturable``
     changes nothing, and an eager step never calls it."""
-    model = _model("pwcnet")
+    model = make_model("pwcnet", **SMALL)
     opt, _ = make_optimizer(model.parameters(), ScheduleConfig(**SCHEDULE))
     before = copy.deepcopy(opt.state_dict())
     make_capturable(opt)
@@ -532,7 +508,7 @@ def test_train_state_restores_a_card_checkpoint_on_the_cpu(tmp_path):
 # ---------------------------------------------------------------------------
 
 def _entry_points():
-    model = _model("pwcnet")
+    model = make_model("pwcnet", **SMALL)
     opt, sched = make_optimizer(model.parameters(),
                                 ScheduleConfig(**SCHEDULE))
     x = np.zeros((*HW, 3), np.float32)
@@ -618,8 +594,8 @@ def test_cuda_replayed_train_step_equals_eager(card, family):
         state = TrainState.create(model, opt, sched, seed=3)
         ms = []
         for i in range(4):
-            b = {k: v.to(dev) for k, v in _t(_batch(
-                np.random.default_rng(i), 2, (192, 256))).items()}
+            b = {k: v.to(dev) for k, v in to_torch(random_batch(
+                np.random.default_rng(i), 2, (192, 256), 0.2)).items()}
             state, m = step(state, b)
             ms.append({k: float(v) for k, v in m.items()})
         runs.append((ms, [p.detach().clone() for p in model.parameters()]))
@@ -655,8 +631,8 @@ def test_cuda_only_a_captured_step_makes_the_optimizer_capturable(card):
         step = make_train_step(model, opt, sched, capture=capture)
         state = TrainState.create(model, opt, sched, seed=3)
         for i in range(3):
-            b = {k: v.to(dev) for k, v in _t(_batch(
-                np.random.default_rng(i), 2, (128, 192))).items()}
+            b = {k: v.to(dev) for k, v in to_torch(random_batch(
+                np.random.default_rng(i), 2, (128, 192), 0.2)).items()}
             state, _ = step(state, b)
         g = opt.param_groups[0]
         st = opt.state[g["params"][0]]

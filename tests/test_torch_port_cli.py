@@ -47,6 +47,8 @@ from pwcnet_tpu_torch.train.loop import build_model
 from pwcnet_tpu_torch.train.schedule import optimizer_from_config
 from pwcnet_tpu_torch.train.state import TrainState
 
+import torch_port_util  # noqa: F401  (this process's share of the cores)
+
 FIXTURES = Path(__file__).resolve().parent / "fixtures" / "parity"
 
 

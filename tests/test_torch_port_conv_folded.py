@@ -27,23 +27,11 @@ from pwcnet_tpu_torch.ops.kernels import (conv_folded_kernel,
                                           warp_corr_kernel)
 from pwcnet_tpu_torch.ops.warp_corr import warp_corr_prepadded_ref
 
-
-def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(a))
+from torch_port_util import need_cuda, to_torch
 
 
 def _w(rng, *shape):
     return (rng.standard_normal(shape) * 0.1).astype(np.float32)
-
-
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / np.abs(want).max()
-
-
-def _need_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
 
 
 @pytest.mark.parametrize("slope", [None, 0.1])
@@ -63,7 +51,8 @@ def test_conv2d_folded_matches_jax(stride, ci, co, hw, slope):
     want = np.asarray(jax_folded(jnp.asarray(x), jnp.asarray(w),
                                  jnp.asarray(b), stride=stride, slope=slope,
                                  interpret=True))
-    got = conv2d_folded(_t(x), _t(w), _t(b), stride=stride, slope=slope)
+    got = conv2d_folded(to_torch(x), to_torch(w), to_torch(b), stride=stride,
+                        slope=slope)
     assert tuple(got.shape) == want.shape  # the same fold G
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
 
@@ -87,9 +76,9 @@ def test_conv2d_folded_in_g_chain_and_grads_match_jax():
 
     (_, want_y), want_g = jax.value_and_grad(jax_loss, has_aux=True)(
         (jnp.asarray(w1), jnp.asarray(w2)))
-    tw1, tw2 = _t(w1).requires_grad_(), _t(w2).requires_grad_()
-    y = conv2d_folded(_t(x), tw1, _t(b1), stride=2, slope=0.1)
-    y = conv2d_folded(y, tw2, _t(b2), slope=0.1, in_g=g1)
+    tw1, tw2 = to_torch(w1).requires_grad_(), to_torch(w2).requires_grad_()
+    y = conv2d_folded(to_torch(x), tw1, to_torch(b1), stride=2, slope=0.1)
+    y = conv2d_folded(y, tw2, to_torch(b2), slope=0.1, in_g=g1)
     torch.sum(y ** 2).backward()
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y),
                                rtol=2e-4, atol=2e-4)
@@ -105,9 +94,9 @@ def test_fold_layout_matches_jax(w_out, co):
     rng = np.random.default_rng(2)
     x = rng.random((1, 4, w_out, co), np.float32)
     g = pick_g(w_out, co)
-    np.testing.assert_array_equal(fold_w(_t(x), g).numpy(),
+    np.testing.assert_array_equal(fold_w(to_torch(x), g).numpy(),
                                   np.asarray(jax_fold_w(jnp.asarray(x), g)))
-    assert torch.equal(unfold_w(fold_w(_t(x), g), g), _t(x))
+    assert torch.equal(unfold_w(fold_w(to_torch(x), g), g), to_torch(x))
 
 
 @pytest.mark.parametrize("dilation", [1, 2])
@@ -118,7 +107,8 @@ def test_conv_ref_matches_jax(dilation):
     want = np.asarray(jax_conv_ref(jnp.asarray(x), jnp.asarray(w),
                                    jnp.asarray(b), dilation=dilation,
                                    slope=0.1))
-    got = conv_ref(_t(x), _t(w), _t(b), dilation=dilation, slope=0.1)
+    got = conv_ref(to_torch(x), to_torch(w), to_torch(b), dilation=dilation,
+                   slope=0.1)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
@@ -137,8 +127,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_prepadded_dispatch_is_plain_on_cpu_and_differentiates():
     rng = np.random.default_rng(4)
-    f1 = _t(rng.standard_normal((1, 4, 6, 5)).astype(np.float32))
-    f2e = _t(rng.standard_normal((1, 8, 6, 5)).astype(np.float32))
+    f1 = to_torch(rng.standard_normal((1, 4, 6, 5)).astype(np.float32))
+    f2e = to_torch(rng.standard_normal((1, 8, 6, 5)).astype(np.float32))
     before = dict(cost_volume_kernel.LAUNCHES)
     a = f1.clone().requires_grad_()
     out = cost_volume_prepadded(a, f2e, max_displacement=2)
@@ -157,7 +147,7 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 @pytest.mark.parametrize("shape", [(2, 7, 13, 5), (1, 4, 16, 196),
                                    (2, 32, 128, 64)])
 def test_cost_volume_prepadded_kernel_matches_plain(shape, dtype):
-    _need_cuda()
+    need_cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
     n, t, w, c = shape
     f1 = torch.randn(shape, device="cuda", generator=g).to(dtype)
@@ -177,7 +167,7 @@ def test_cost_volume_prepadded_kernel_matches_plain(shape, dtype):
                                           ((1, 64, 256, 32), 64, 128)])
 def test_warp_corr_prepadded_kernel_matches_plain(shape, row0, h, scale,
                                                   dtype):
-    _need_cuda()
+    need_cuda()
     g = torch.Generator(device="cuda").manual_seed(1)
     n, t, w, c = shape
     d, halo = 4, max(min(16, t), 4)
@@ -213,7 +203,7 @@ def test_warp_corr_prepadded_kernel_matches_plain(shape, row0, h, scale,
     (1, 1, 200, 24, (5, 9))])
 def test_conv_folded_kernel_matches_plain(n, stride, ci, co, hw, slope,
                                           dtype, tol):
-    _need_cuda()
+    need_cuda()
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.rand((n, *hw, ci), device="cuda", generator=g).to(dtype)

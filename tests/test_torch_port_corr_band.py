@@ -20,6 +20,8 @@ from pwcnet_tpu.ops.cost_volume import (cost_volume_lax,
                                         cost_volume_prepadded_lax)
 from pwcnet_tpu_torch.ops.cost_volume import corr_band_ref, cost_volume_ref
 
+from torch_port_util import to_torch
+
 TOL = 1e-5
 # chip_smoke.py's ragged shapes of K1 and K1p, and a width of 17 at C = 196.
 K1_RAGGED = [(2, 7, 13, 5), (1, 9, 33, 196), (3, 20, 70, 32),
@@ -39,7 +41,7 @@ def _feats(shape, seed, extra_rows=0):
 @pytest.mark.parametrize("shape", [(2, 9, 37, 24), (1, 6, 16, 8)])
 def test_band_matches_jax_lax_per_displacement(shape, d):
     f1, f2 = _feats(shape, d)
-    got = corr_band_ref(torch.from_numpy(f1), torch.from_numpy(f2), d)
+    got = corr_band_ref(to_torch(f1), to_torch(f2), d)
     want = np.asarray(cost_volume_lax(jnp.asarray(f1), jnp.asarray(f2), d))
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
@@ -48,7 +50,7 @@ def test_band_matches_jax_lax_per_displacement(shape, d):
 @pytest.mark.parametrize("shape", K1_RAGGED)
 def test_band_matches_jax_lax_at_ragged_shapes(shape):
     f1, f2 = _feats(shape, 10)
-    got = corr_band_ref(torch.from_numpy(f1), torch.from_numpy(f2))
+    got = corr_band_ref(to_torch(f1), to_torch(f2))
     want = np.asarray(cost_volume_lax(jnp.asarray(f1), jnp.asarray(f2), 4))
     np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0)
 
@@ -57,7 +59,7 @@ def test_band_matches_jax_lax_at_ragged_shapes(shape):
 @pytest.mark.parametrize("shape", K1P_RAGGED)
 def test_band_prepadded_matches_jax_lax(shape, d):
     f1, f2e = _feats(shape, 20 + d, extra_rows=2 * d)
-    got = corr_band_ref(torch.from_numpy(f1), torch.from_numpy(f2e), d,
+    got = corr_band_ref(to_torch(f1), to_torch(f2e), d,
                         prepadded=True)
     want = np.asarray(cost_volume_prepadded_lax(
         jnp.asarray(f1), jnp.asarray(f2e), max_displacement=d))
@@ -67,7 +69,7 @@ def test_band_prepadded_matches_jax_lax(shape, d):
 def test_band_in_bf16_rounds_once_as_the_plain_version():
     """bf16 inputs: f32 products and sums, one rounding; at most one bf16
     step from the plain version (chip_smoke.py's TOL for the kernel)."""
-    f1, f2 = (torch.from_numpy(a).bfloat16()
+    f1, f2 = (to_torch(a).bfloat16()
               for a in _feats((2, 8, 40, 64), 30))
     got = corr_band_ref(f1, f2).float()
     want = cost_volume_ref(f1, f2).float()

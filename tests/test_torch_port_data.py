@@ -29,6 +29,8 @@ from pwcnet_tpu_torch.data import base as tbase
 from pwcnet_tpu_torch.data import pipeline as tpipe
 from pwcnet_tpu_torch.data import trees
 
+import torch_port_util  # noqa: F401  (this process's share of the cores)
+
 KEYS = ("im1", "im2", "flow", "valid")
 
 

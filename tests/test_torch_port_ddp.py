@@ -40,8 +40,7 @@ from pwcnet_tpu.train.schedule import ScheduleConfig as JaxSchedule
 from pwcnet_tpu.train.schedule import make_optimizer as jax_optimizer
 from pwcnet_tpu.train.state import TrainState as JaxTrainState
 from pwcnet_tpu.train.step import make_train_step as jax_train_step
-from pwcnet_tpu_torch.compat.flax_weights import (_flatten, load_flax_params,
-                                                  torch_key)
+from pwcnet_tpu_torch.compat.flax_weights import _flatten, load_flax_params
 from pwcnet_tpu_torch.config import PRESETS, AugmentConfig
 from pwcnet_tpu_torch.data.augment import (augment_batch, draw_augment_params,
                                            fold_in)
@@ -55,6 +54,8 @@ from pwcnet_tpu_torch.parallel.launch import run_ranks, run_steps
 from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
 from pwcnet_tpu_torch.train.evaluate import evaluate_dataset
 from pwcnet_tpu_torch.train.loop import _log_idle_cards, build_model, train
+
+from torch_port_util import jax_tree_to_port, one_thread, params_agree
 
 WORLD = 2
 HW = (64, 64)
@@ -96,34 +97,6 @@ def _batches(n_steps, first=0):
         out.append({k: torch.from_numpy(np.stack([r[k] for r in rows]))
                     for k in ("im1", "im2", "flow", "valid")})
     return out
-
-
-def _params_agree(got, want):
-    """At least PARAM_SHARE of the entries within rtol=2e-4, atol=2e-6,
-    and every entry within UPDATE_BOUND; returns the share."""
-    inside = total = 0
-    for k, w in want.items():
-        g, w = np.asarray(got[k], np.float64), np.asarray(w, np.float64)
-        assert g.shape == w.shape, k
-        diff = np.abs(g - w)
-        inside += int((diff <= 2e-6 + 2e-4 * np.abs(w)).sum())
-        total += w.size
-        assert diff.max() <= UPDATE_BOUND, (k, diff.max())
-    assert inside >= PARAM_SHARE * total, (inside, total)
-    return inside / total
-
-
-def _jax_tree_to_port(flat):
-    return {torch_key(k): (v.transpose(3, 2, 0, 1) if v.ndim == 4 else v)
-            for k, v in flat.items()}
-
-
-@pytest.fixture(scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -221,7 +194,7 @@ def test_two_ranks_equal_one_process(setup, ranks, family):
     errs = {k: (got["grads"][0][k] - w).abs().max().item()
             / w.abs().max().item() for k, w in one["grads"][0].items()}
     assert max(errs.values()) <= 1e-4, max(errs.values())
-    _params_agree(got["params"], one["params"])
+    params_agree(got["params"], one["params"], PARAM_SHARE, UPDATE_BOUND)
 
 
 def test_two_ranks_equal_jax_mesh_step(setup, ranks):
@@ -242,10 +215,10 @@ def test_two_ranks_equal_jax_mesh_step(setup, ranks):
     got = res["pwc"][0]
     for g, w in zip(got["metrics"], jmetrics):
         assert abs(g["loss"] - w) <= LOSS_RTOL * abs(w)
-    want = _jax_tree_to_port(_flatten(jax.device_get(state.params)[
+    want = jax_tree_to_port(_flatten(jax.device_get(state.params)[
         "params"]))
     assert want.keys() == got["params"].keys()
-    _params_agree(got["params"], want)
+    params_agree(got["params"], want, PARAM_SHARE, UPDATE_BOUND)
 
 
 def test_augmentation_is_folded_per_rank(setup, ranks):
@@ -258,7 +231,7 @@ def test_augmentation_is_folded_per_rank(setup, ranks):
     got = res["aug"][0]
     assert abs(got["metrics"][0]["loss"] - one["metrics"][0]["loss"]) \
         <= LOSS_RTOL * abs(one["metrics"][0]["loss"])
-    _params_agree(got["params"], one["params"])
+    params_agree(got["params"], one["params"], PARAM_SHARE, UPDATE_BOUND)
     seed = setup["aug_cfg"].train.seed + 1
     draws = [draw_augment_params(fold_in(torch.Generator().manual_seed(
         seed), r), 2, HW, AUG) for r in range(WORLD)]

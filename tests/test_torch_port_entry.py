@@ -20,31 +20,17 @@ import pytest
 import torch
 
 import pwcnet_tpu_torch.train.evaluate as evaluate_mod
-from pwcnet_tpu_torch import PWCNet, trace
-from pwcnet_tpu_torch.models.raft import RAFT
-from pwcnet_tpu_torch.models.raft_allpairs import RAFTAllPairs
+from pwcnet_tpu_torch import trace
 from pwcnet_tpu_torch.train.evaluate import (infer_flow, pad_to_divisible,
                                              predict_flow)
 
+from torch_port_util import make_model, one_thread, shifted_pair
+
 FAMILIES = ["pwcnet", "raft", "raft_allpairs"]
 SIZES = {"ragged": (60, 90), "divisible": (64, 128)}
-
-
-def _model(family: str, device="cpu", dtype=torch.float32):
-    gen = torch.Generator().manual_seed(FAMILIES.index(family))
-    if family == "pwcnet":
-        small = dict(num_levels=3, output_level=2) if device == "cpu" else {}
-        return PWCNet(device=device, dtype=dtype, generator=gen, **small)
-    iters = 2 if device == "cpu" else None
-    cls = RAFT if family == "raft" else RAFTAllPairs
-    kw = {} if iters is None else dict(num_iters=iters)
-    return cls(device=device, dtype=dtype, generator=gen, **kw).eval()
-
-
-def _pair(seed: int, hw):
-    rng = np.random.default_rng(seed)
-    im1 = rng.random((*hw, 3), np.float32)
-    return im1, np.roll(im1, (2, 3), (0, 1)) * np.float32(0.9)
+# The models on the CPU: PWC-Net with 3 levels, the RAFTs 2 iterations.
+FAMILY_KW = {"pwcnet": dict(num_levels=3, output_level=2),
+             "raft": dict(num_iters=2), "raft_allpairs": dict(num_iters=2)}
 
 
 def _host_pad_flow(model, im1, im2, capture=False) -> np.ndarray:
@@ -69,20 +55,13 @@ def _host_pad_flow(model, im1, im2, capture=False) -> np.ndarray:
     return full[0, :h, :w].float().cpu().numpy()
 
 
-@pytest.fixture(scope="module")
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)  # bitwise repeatable CPU convolutions
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("size", sorted(SIZES))
 @pytest.mark.parametrize("family", FAMILIES)
 def test_staged_entry_equals_host_pad(one_thread, family, size):
-    model = _model(family)
+    model = make_model(family, FAMILIES.index(family),
+                       **FAMILY_KW[family]).eval()
     hw = SIZES[size]
-    im1, im2 = _pair(0, hw)
+    im1, im2 = shifted_pair(0, hw, 0.9)
     got = predict_flow(model, im1, im2)
     assert got.shape == (*hw, 2) and got.dtype == np.float32
     np.testing.assert_array_equal(got, _host_pad_flow(model, im1, im2))
@@ -93,9 +72,10 @@ def test_kept_answers_are_the_callers_own(one_thread, family):
     """Two calls with different frames: the first answer is unchanged by
     the second, writable, and shares no memory with the stage's buffers;
     the margin of the padded buffer is still zero."""
-    model = _model(family)
+    model = make_model(family, FAMILIES.index(family),
+                       **FAMILY_KW[family]).eval()
     hw = SIZES["ragged"]
-    (a1, a2), (b1, b2) = _pair(1, hw), _pair(2, hw)
+    (a1, a2), (b1, b2) = shifted_pair(1, hw, 0.9), shifted_pair(2, hw, 0.9)
     first = predict_flow(model, a1, a2)
     kept = first.copy()
     second = predict_flow(model, b1, b2)
@@ -116,8 +96,8 @@ def test_kept_answers_are_the_callers_own(one_thread, family):
 def test_frames_in_any_numpy_form(one_thread, form):
     """Read-only, non-f32, reversed or strided frames give what
     ``np.asarray(im, np.float32)`` gives through the host pad."""
-    model = _model("pwcnet")
-    im1, im2 = _pair(3, SIZES["ragged"])
+    model = make_model("pwcnet", **FAMILY_KW["pwcnet"])
+    im1, im2 = shifted_pair(3, SIZES["ragged"], 0.9)
     if form == "read_only":
         im1.flags.writeable = False
     elif form == "float64":
@@ -132,8 +112,8 @@ def test_frames_in_any_numpy_form(one_thread, form):
 
 
 def test_frames_of_two_shapes_are_refused():
-    model = _model("pwcnet")
-    im1, _ = _pair(4, SIZES["ragged"])
+    model = make_model("pwcnet", **FAMILY_KW["pwcnet"])
+    im1, _ = shifted_pair(4, SIZES["ragged"], 0.9)
     with pytest.raises(ValueError, match="two \\(H, W, C\\) frames"):
         predict_flow(model, im1, im1[:, :-8])
     with pytest.raises(ValueError, match="two \\(H, W, C\\) frames"):
@@ -142,11 +122,11 @@ def test_frames_of_two_shapes_are_refused():
 
 def test_counters_on_the_cpu():
     """``calls`` rises by one a call; nothing is pinned for a CPU model."""
-    model = _model("pwcnet")
+    model = make_model("pwcnet", **FAMILY_KW["pwcnet"])
     counts = trace.counters("predict_flow")
     before = dict(counts)
     for seed in range(3):
-        predict_flow(model, *_pair(seed, SIZES["ragged"]))
+        predict_flow(model, *shifted_pair(seed, SIZES["ragged"], 0.9))
     assert counts["calls"] == before["calls"] + 3
     assert counts["pinned_uploads"] == before["pinned_uploads"]
 
@@ -155,9 +135,9 @@ def test_threads_sharing_a_model_take_turns():
     """Six threads call one model, each with its own frames of one shape,
     under a short switch interval: every answer equals its own frames'
     (without the stage's lock the threads overwrite each other's frames)."""
-    model = _model("pwcnet")
+    model = make_model("pwcnet", **FAMILY_KW["pwcnet"])
     hw = SIZES["ragged"]
-    pairs = [_pair(20 + i, hw) for i in range(6)]
+    pairs = [shifted_pair(20 + i, hw, 0.9) for i in range(6)]
     want = [predict_flow(model, *p) for p in pairs]
     got = [[] for _ in pairs]
     before = sys.getswitchinterval()
@@ -181,9 +161,9 @@ def test_threads_sharing_a_model_take_turns():
 
 def test_stages_live_with_the_model():
     """One stage per frame shape, made once; it goes when the model goes."""
-    model = _model("pwcnet")
+    model = make_model("pwcnet", **FAMILY_KW["pwcnet"])
     for hw in (SIZES["ragged"], SIZES["divisible"], SIZES["ragged"]):
-        predict_flow(model, *_pair(5, hw))
+        predict_flow(model, *shifted_pair(5, hw, 0.9))
     stages = evaluate_mod._STAGES[model]
     assert sorted(k[1] for k in stages) == [(60, 90, 3), (64, 128, 3)]
     assert stages[(torch.device("cpu"), (60, 90, 3))].padded.shape == \
@@ -214,8 +194,9 @@ def test_cuda_staged_entry_equals_host_pad(card, family):
     their own answer (the pinned buffer is rewritten only after its copy
     has run), kept answers stay as they were, and every call makes one
     pinned upload."""
-    model = _model(family, card, torch.bfloat16)
-    pairs = [_pair(10 + i, (436, 1024)) for i in range(2)]
+    model = make_model(family, FAMILIES.index(family), device=card,
+                       dtype=torch.bfloat16).eval()
+    pairs = [shifted_pair(10 + i, (436, 1024), 0.9) for i in range(2)]
     want = [_host_pad_flow(model, *p, capture=True) for p in pairs]
     counts = trace.counters("predict_flow")
     before = dict(counts)

@@ -27,15 +27,12 @@ from pwcnet_tpu_torch.data.synthetic import SyntheticFlow
 from pwcnet_tpu_torch.models import RAFT
 from pwcnet_tpu_torch.train.loop import build_model
 
+from torch_port_util import jax_npz_params, rel_err
+
 REPO = Path(__file__).resolve().parents[1]
 FIXTURES = REPO / "tests" / "fixtures" / "parity"
 NPZ = REPO / "runs" / "raft-synthetic" / "params_step20000_bf16.npz"
 TOL = 1e-4
-
-
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
 
 
 def test_fb_consistency_matches_jax():
@@ -45,20 +42,7 @@ def test_fb_consistency_matches_jax():
     got = tfront.fb_consistency(fw, bw, device="cpu")
     want = jfront.fb_consistency(fw, bw)
     assert got.shape == (40, 56) and got.dtype == np.float32
-    assert _rel_err(got, want) <= 1e-6
-
-
-def _jax_npz_params():
-    tree = {}
-    with np.load(NPZ) as z:
-        for key in z.files:
-            a = (z[key].view(np.uint16).astype(np.uint32) << 16).view(
-                np.float32)
-            node = tree
-            for p in key.split("/")[1:-1]:
-                node = node.setdefault(p, {})
-            node[key.split("/")[-1]] = a
-    return {"params": tree}
+    assert rel_err(got, want, floor=1e-30) <= 1e-6
 
 
 def _pwcnet_pair():
@@ -79,7 +63,7 @@ def _raft_pair():
     s = SyntheticFlow(split="val", hw=(128, 160))[1]
     model = RAFT(device="cpu").eval()
     load_flax_params(model, read_flax_npz(str(NPZ)))
-    return (JaxRAFT(corr_backend="lax"), _jax_npz_params(), model, s["im1"],
+    return (JaxRAFT(corr_backend="lax"), jax_npz_params(NPZ), model, s["im1"],
             s["im2"])
 
 
@@ -90,7 +74,7 @@ def test_match_two_view_matches_jax(family):
     want = jfront.match_two_view(jm, params, im1, im2, grid_step=6)
     got = tfront.match_two_view(model, im1, im2, grid_step=6)
     assert got["flow"].shape == (*im1.shape[:2], 2)
-    assert _rel_err(got["flow"], want["flow"]) <= TOL
+    assert rel_err(got["flow"], want["flow"], floor=1e-30) <= TOL
     assert np.abs(got["fb_error"] - want["fb_error"]).max() <= TOL * max(
         np.abs(want["flow"]).max(), 1.0)
     assert len(got["pts1"]) == len(want["pts1"]) > 0

@@ -17,7 +17,6 @@ import pytest
 import torch
 
 import optax
-import pwcnet_tpu.data.synthetic as jsyn
 from pwcnet_tpu.models import PWCNet as JaxPWCNet
 from pwcnet_tpu.models.pwcnet import (FeaturePyramidExtractor as JaxFPE,
                                       OpticalFlowEstimator as JaxEstimator)
@@ -37,16 +36,9 @@ from pwcnet_tpu_torch.train.schedule import ScheduleConfig, make_optimizer
 from pwcnet_tpu_torch.train.state import TrainState
 from pwcnet_tpu_torch.train.step import make_train_step
 
+from torch_port_util import rel_err, rendered_batch, to_torch, torch_threads
+
 NCORR = 81
-
-
-def _t(a):
-    return torch.from_numpy(np.asarray(a))
-
-
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / np.abs(want).max()
 
 
 def _inputs(shape, seed, flow_kind):
@@ -82,10 +74,11 @@ def test_warp_corr_ref_matches_jax_fused(shape, dtype, flow_kind, tol):
     want = warp_corr_fused(jnp.asarray(f1, jdt), jnp.asarray(f2, jdt),
                            jnp.asarray(flow))
     tdt = getattr(torch, dtype)
-    got = warp_corr_ref(_t(f1).to(tdt), _t(f2).to(tdt), _t(flow))
+    got = warp_corr_ref(to_torch(f1).to(tdt), to_torch(f2).to(tdt),
+                        to_torch(flow))
     assert got.dtype == tdt and got.shape == shape[:3] + (NCORR,)
     want = np.asarray(want.astype(jnp.float32))
-    assert _rel_err(got.float().numpy(), want) <= tol
+    assert rel_err(got.float().numpy(), want) <= tol
     if flow_kind == "integer_and_far":
         # A far pixel's warped features are exactly 0, so is its centre tap.
         far = (np.abs(flow) == 1000).any(-1)
@@ -119,17 +112,18 @@ def test_backward_glue_matches_jax_grad(bwd_case, needs):
     None."""
     (f1, f2, flow, cos), want = bwd_case
     got = warp_corr_kernel.warp_corr_backward(
-        _t(cos), _t(f1), _t(f2), _t(flow), 4, cost_volume_bwd_ref, needs)
+        to_torch(cos), to_torch(f1), to_torch(f2), to_torch(flow), 4,
+        cost_volume_bwd_ref, needs)
     for g, w, need in zip(got, want, needs):
         if not need:
             assert g is None
             continue
         assert g.shape == w.shape
-        assert _rel_err(g.numpy(), w) <= 1e-4
+        assert rel_err(g.numpy(), w) <= 1e-4
 
 
 def test_warp_corr_dispatches_to_plain_on_cpu_and_differentiates():
-    f1, f2, flow = (_t(a) for a in _inputs((1, 6, 7, 5), 2, "normal"))
+    f1, f2, flow = (to_torch(a) for a in _inputs((1, 6, 7, 5), 2, "normal"))
     before = dict(warp_corr_kernel.LAUNCHES)
     a = [t.clone().requires_grad_() for t in (f1, f2, flow)]
     out = warp_corr(*a)
@@ -155,7 +149,7 @@ def test_warp_corr_kernel_wrapper_refuses_cpu_tensors():
 def test_warp_corr_kernel_matches_plain(shape, flow_kind, dtype, tol):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    f1, f2, flow = (_t(a).cuda() for a in _inputs(shape, 3, flow_kind))
+    f1, f2, flow = (to_torch(a).cuda() for a in _inputs(shape, 3, flow_kind))
     f1, f2 = f1.to(dtype), f2.to(dtype)
     with torch.no_grad():
         got = warp_corr_kernel.warp_corr_cuda(f1, f2, flow).float()
@@ -225,7 +219,7 @@ def model_run(jax_params):
     load_flax_params(model, variables["params"])
     inter = {}
     with torch.no_grad():
-        tflows = model(_t(im1), _t(im2), intermediates=inter)
+        tflows = model(to_torch(im1), to_torch(im2), intermediates=inter)
     return dict(
         jax=dict(pyramid=jpyr, corr=jcorr, flows=jflows),
         port=dict(pyramid=[p.numpy() for p in inter["pyramid"]],
@@ -238,7 +232,7 @@ def model_run(jax_params):
 def test_fused_forward_matches_jax_per_level(model_run, what, i):
     got, want = model_run["port"][what][i], model_run["jax"][what][i]
     assert got.shape == want.shape
-    assert _rel_err(got, want) <= 1e-4
+    assert rel_err(got, want) <= 1e-4
 
 
 WARPED_HW = [(2, 2), (4, 4), (8, 8), (16, 16)]  # levels 5..2 of 64 x 64
@@ -262,13 +256,13 @@ def test_fused_model_dispatch(monkeypatch, min_pixels):
     model = PWCNet(corr_backend="fused", fused_min_pixels=min_pixels,
                    device="cpu")
     ref = PWCNet(device="cpu")
-    im = _t(np.random.default_rng(5).random((1, *HW, 3), np.float32))
+    im = to_torch(np.random.default_rng(5).random((1, *HW, 3), np.float32))
     with torch.no_grad():
         got = model(im, im.flip(2))
         want = ref(im, im.flip(2))
     assert seen == fused_hw
     for g, w in zip(got, want):
-        assert _rel_err(g.numpy(), w.numpy()) <= 1e-5
+        assert rel_err(g.numpy(), w.numpy()) <= 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -286,20 +280,12 @@ _KEEP_GRADS = optax.GradientTransformation(
 
 @pytest.fixture(scope="module")
 def fused_step(jax_params):
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
+    with torch_threads(1):
         return _fused_step(*jax_params)
-    finally:
-        torch.set_num_threads(n_threads)
 
 
 def _fused_step(jm, params):
-    samples = [jsyn._render(np, HW, jsyn._scale_pos(
-        jsyn._host_params(np.random.default_rng(s), "hard"), HW, np))
-        for s in (30, 31)]
-    batch = {k: np.stack([s[k] for s in samples]).astype(np.float32)
-             for k in samples[0]}
+    batch = rendered_batch(HW, (30, 31))
     st, jm1 = jax_train_step(jm, _KEEP_GRADS, aug=None)(
         JaxTrainState.create(params, _KEEP_GRADS, jax.random.key(1)), batch)
     jgrads = _flatten(jax.device_get(st.opt_state)["params"])
@@ -310,7 +296,7 @@ def _fused_step(jm, params):
                                 ScheduleConfig(**STEP_SCHEDULE))
     _, tm1 = make_train_step(model, opt, sched)(
         TrainState.create(model, opt, sched, seed=1),
-        {k: _t(v) for k, v in batch.items()})
+        to_torch(batch))
     as_torch = lambda a: a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
     return dict(
         jmetrics={k: float(v) for k, v in jm1.items()},
@@ -330,6 +316,6 @@ def test_fused_train_step_metrics_match_jax(fused_step):
 def test_fused_train_step_gradients_match_jax(fused_step):
     jg, tg = fused_step["jgrads"], fused_step["tgrads"]
     assert jg.keys() == tg.keys()
-    errs = {k: _rel_err(tg[k], jg[k]) for k in jg}
+    errs = {k: rel_err(tg[k], jg[k]) for k in jg}
     assert max(errs.values()) <= 1e-4, sorted(errs.items(),
                                               key=lambda t: -t[1])[:3]

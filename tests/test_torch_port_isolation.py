@@ -16,6 +16,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_port_util  # noqa: F401  (this process's share of the cores)
+
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pwcnet_tpu", "ml_dtypes")
 

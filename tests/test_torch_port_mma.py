@@ -12,10 +12,7 @@ import torch
 from pwcnet_tpu_torch.ops.conv import conv_same
 from pwcnet_tpu_torch.ops.kernels import build, stem_kernel
 
-
-def _rel_err(got, want):
-    got, want = got.double(), want.double()
-    return ((got - want).abs().max() / want.abs().max()).item()
+from torch_port_util import rel_err, stem_params, torch_stem_params
 
 
 def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
@@ -50,16 +47,7 @@ def test_stride2_transposed_conv_parity_split_matches_autograd(hw):
     want, = torch.autograd.grad(out, a, p)
     got = stem_kernel.conv_t2_ref(p.permute(0, 2, 3, 1),
                                   w.permute(2, 3, 1, 0), hw)
-    assert _rel_err(got.permute(0, 3, 1, 2), want) <= 1e-6
-
-
-def _stem_params(rng):
-    shapes = [(3, 16), (16, 16), (16, 32), (32, 32)]
-    return [(torch.from_numpy((rng.standard_normal((co, ci, 3, 3)) * 0.2)
-                              .astype(np.float32)),
-             torch.from_numpy((rng.standard_normal(co) * 0.1)
-                              .astype(np.float32)))
-            for ci, co in shapes]
+    assert rel_err(got.permute(0, 3, 1, 2), want) <= 1e-6
 
 
 def _grads(im, params, g):
@@ -78,7 +66,7 @@ def test_bf16_stem_backward_rounding_holds_the_oracle_bound(shape):
     max(3 x the plain bf16 autograd's error, 5e-3): chip_smoke.py's
     STEM_BWD_BF16 bound for the kernel."""
     rng = np.random.default_rng(13)
-    params = _stem_params(rng)
+    params = torch_stem_params(stem_params(rng))
     im = torch.from_numpy(rng.random(shape, np.float32)).bfloat16()
     g = torch.from_numpy(rng.standard_normal(
         (shape[0], shape[1] // 4, shape[2] // 4, 32)).astype(
@@ -91,7 +79,7 @@ def test_bf16_stem_backward_rounding_holds_the_oracle_bound(shape):
     assert d_im.dtype == torch.bfloat16 and d_im.shape == im.shape
     for x, y, o in zip(got, plain, oracle):
         assert x.shape == o.shape
-        assert _rel_err(x, o) <= max(3 * _rel_err(y, o), 5e-3)
+        assert rel_err(x, o) <= max(3 * rel_err(y, o), 5e-3)
     no_im, dp2 = stem_kernel.stem_bwd_bf16_ref(im, params, g, need_im=False)
     assert no_im is None
     assert all(torch.equal(a, b) for pa, pb in zip(dp, dp2)

@@ -24,14 +24,11 @@ from pwcnet_tpu_torch import PWCNet, predict_flow
 from pwcnet_tpu_torch.compat import load_flax_params
 from pwcnet_tpu_torch.train.evaluate import pad_to_divisible
 
+from torch_port_util import rel_err
+
 RAW_HW = (100, 150)  # padded to (128, 192) by pad_to_divisible
 TOL = 1e-4
 NCORR = 81
-
-
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / np.abs(want).max()
 
 
 @pytest.fixture(scope="module")
@@ -87,7 +84,7 @@ def run():
 def test_forward_matches_jax_per_level(run, what, i):
     got, want = run["port"][what][i], run["jax"][what][i]
     assert got.shape == want.shape
-    assert _rel_err(got, want) <= TOL
+    assert rel_err(got, want) <= TOL
 
 
 def test_forward_has_signal(run):
@@ -100,7 +97,7 @@ def test_predict_flow_non_divisible_size(run):
     got = predict_flow(run["model"], *run["raw"])
     want = run["jax"]["pred"]
     assert got.shape == (*RAW_HW, 2) and got.dtype == np.float32
-    assert _rel_err(got, want) <= TOL
+    assert rel_err(got, want) <= TOL
 
 
 def test_forward_rejects_non_divisible_size():
@@ -176,7 +173,7 @@ def test_options_match_jax(cfg):
     assert len(got) == len(want) == cfg["output_level"] + 1
     for g, w in zip(got, want):
         assert g.shape == w.shape
-        assert _rel_err(g.numpy(), np.asarray(w)) <= TOL
+        assert rel_err(g.numpy(), np.asarray(w)) <= TOL
 
 
 # -- the backend names (corr_backend, stem_backend) ---------------------------
@@ -227,7 +224,7 @@ def lax_run():
 def test_lax_backend_matches_jax_lax_per_level(lax_run, what, i):
     got, want = lax_run["port"][what][i], lax_run["jax"][what][i]
     assert got.shape == want.shape
-    assert _rel_err(got, want) <= TOL
+    assert rel_err(got, want) <= TOL
 
 
 def test_build_model_takes_corr_backend_lax():
@@ -298,4 +295,4 @@ def test_lax_backends_on_the_card_run_the_plain_ops(dtype):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         if dtype == torch.float32:
-            assert _rel_err(g.cpu().numpy(), w.cpu().numpy()) <= TOL
+            assert rel_err(g.cpu().numpy(), w.cpu().numpy()) <= TOL

@@ -26,7 +26,6 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-import pwcnet_tpu.data.synthetic as jsyn
 import pwcnet_tpu.losses as jl
 from pwcnet_tpu.models import PWCNet as JaxPWCNet
 from pwcnet_tpu.models.pwcnet import FeaturePyramidExtractor as JaxFPE
@@ -40,7 +39,6 @@ from pwcnet_tpu.train.step import make_train_step as jax_train_step
 from pwcnet_tpu_torch import PWCNet
 from pwcnet_tpu_torch.compat.flax_weights import (_flatten, load_flax_params,
                                                   torch_key)
-from pwcnet_tpu_torch.config import PRESETS
 from pwcnet_tpu_torch.models.layers import ConvBlock, GroupNorm, norm_groups
 from pwcnet_tpu_torch.parallel.launch import run_ranks, run_steps
 from pwcnet_tpu_torch.train.checkpoint import (CheckpointManager,
@@ -50,6 +48,9 @@ from pwcnet_tpu_torch.train.schedule import ScheduleConfig, make_optimizer
 from pwcnet_tpu_torch.train.state import TrainState
 from pwcnet_tpu_torch.train.step import make_train_step
 
+from torch_port_util import (nchw, one_thread, rel_err, rendered_batch,
+                             tiny_cfg, to_torch)
+
 SMALL = dict(num_levels=3, output_level=2, search_range=2, use_norm=True)
 HW = (64, 64)
 TOL = 1e-4
@@ -57,17 +58,7 @@ NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 SCHEDULE = dict(base_lr=1e-4, milestones=(1,), gamma=0.5)
 FLOOR_FACTOR = 3.0
 WORKER_TIMEOUT_S = 240
-
-
-def _rel_err(got, want):
-    got = np.asarray(torch.as_tensor(got).double() if torch.is_tensor(got)
-                     else got, np.float64)
-    want = np.asarray(want, np.float64)
-    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
-
-
-def _nchw(x):
-    return torch.tensor(np.asarray(x).transpose(0, 3, 1, 2))
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 @pytest.fixture(scope="module")
@@ -130,16 +121,17 @@ def test_group_norm_matches_flax(channels, groups, dtype):
     with torch.no_grad():
         norm.weight.copy_(torch.from_numpy(scale))
         norm.bias.copy_(torch.from_numpy(bias))
-        got = norm(_nchw(np.asarray(xj.astype(jnp.float32))).to(dtype))
+        got = norm(nchw(xj.astype(jnp.float32)).to(dtype))
     assert got.dtype == dtype
-    assert _rel_err(got.float().permute(0, 2, 3, 1), want) <= NORM_TOL[dtype]
+    assert rel_err(got.float().permute(0, 2, 3, 1), want,
+                   floor=1e-30) <= NORM_TOL[dtype]
     if dtype == torch.float32:
         xg = torch.from_numpy(x).reshape(2, 16, groups, size)
         mean = xg.mean((1, 3), keepdim=True)
         var = ((xg - mean) ** 2).mean((1, 3), keepdim=True)
         two_pass = ((xg - mean) / torch.sqrt(var + 1e-6)).reshape(x.shape) \
             * torch.from_numpy(scale) + torch.from_numpy(bias)
-        assert _rel_err(two_pass, want) > NORM_TOL[dtype]
+        assert rel_err(two_pass, want, floor=1e-30) > NORM_TOL[dtype]
 
 
 def test_conv_block_orders_conv_norm_activation():
@@ -200,7 +192,7 @@ def forward(images, jax_model):
 def test_use_norm_forward_matches_jax_per_level(forward, what, i):
     want, got = forward[0][what][i], forward[1][what][i]
     assert got.shape == want.shape
-    assert _rel_err(got, want) <= TOL
+    assert rel_err(got, want, floor=1e-30) <= TOL
 
 
 def test_use_norm_model_has_no_stem_and_every_norm(jax_model):
@@ -226,14 +218,6 @@ def test_use_norm_model_has_no_stem_and_every_norm(jax_model):
 # Training: one step against JAX's, train(), checkpoints, DDP
 # ---------------------------------------------------------------------------
 
-def _batch(seeds=(20, 21)):
-    samples = [jsyn._render(np, HW, jsyn._scale_pos(
-        jsyn._host_params(np.random.default_rng(s), "hard"), HW, np))
-        for s in seeds]
-    return {k: np.stack([s[k] for s in samples]).astype(np.float32)
-            for k in samples[0]}
-
-
 def _port_step(params, batch, im_noise=0.0, seed=0):
     model = _port_model(params, corr_backend="lax")
     opt, sched = make_optimizer(model.parameters(),
@@ -248,23 +232,12 @@ def _port_step(params, batch, im_noise=0.0, seed=0):
             {n: p.grad.detach().clone() for n, p in model.named_parameters()})
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: these CPU ops are small, and under parallel test
-    workers more threads only contend; it also makes reruns bitwise
-    equal."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_use_norm_train_step_matches_jax(jax_model, one_thread):
     """One step from the same flax params on the same batch: the metrics
     within 1e-5, every gradient within the f32 floor rule."""
     jm = JaxPWCNet(corr_backend="lax", **SMALL)
     params = jax_model[1]
-    batch = _batch()
+    batch = rendered_batch(HW, (20, 21))
 
     def loss_fn(p):
         return jl.multiscale_loss(jm.apply(p, batch["im1"], batch["im2"]),
@@ -282,41 +255,31 @@ def test_use_norm_train_step_matches_jax(jax_model, one_thread):
             for k, v in jgrads.items()}
     assert want.keys() == grads.keys()
     assert any(".norm." in k for k in want)
-    floor = max(max(_rel_err(g[k], grads[k]) for k in grads)
+    floor = max(max(rel_err(g[k], grads[k], floor=1e-30) for k in grads)
                 for g in (_port_step(params, batch, 1e-6, s)[1]
                           for s in range(3)))
     tol = max(TOL, FLOOR_FACTOR * floor)
-    errs = {k: _rel_err(grads[k], want[k]) for k in want}
+    errs = {k: rel_err(grads[k], want[k], floor=1e-30) for k in want}
     assert max(errs.values()) <= tol, (tol, sorted(
         errs.items(), key=lambda t: -t[1])[:3])
-
-
-def _tiny_cfg(log_dir, **train_kw):
-    cfg = PRESETS["synthetic-proof"]
-    return dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, dtype="float32",
-                                       use_norm=True),
-        data=dataclasses.replace(cfg.data, augment=dataclasses.replace(
-            cfg.data.augment, crop_hw=HW)),
-        train=dataclasses.replace(cfg.train, global_batch=1,
-                                  log_dir=str(log_dir), summary_interval=1,
-                                  **train_kw))
 
 
 def test_use_norm_checkpoint_round_trip(tmp_path, one_thread):
     """train() with use_norm checkpoints the norms' parameters; the
     directory refills a fresh model, and a resumed run equals an
     uninterrupted one bit for bit."""
-    whole = train(_tiny_cfg(tmp_path / "a"), max_steps=3, device="cpu")
-    train(_tiny_cfg(tmp_path / "b"), max_steps=2, device="cpu")
-    rest = train(_tiny_cfg(tmp_path / "b"), max_steps=1, device="cpu")
+    whole = train(tiny_cfg(tmp_path / "a", use_norm=True), max_steps=3,
+                  device="cpu")
+    train(tiny_cfg(tmp_path / "b", use_norm=True), max_steps=2, device="cpu")
+    rest = train(tiny_cfg(tmp_path / "b", use_norm=True), max_steps=1,
+                 device="cpu")
     assert rest["step"] == whole["step"] == 3
     assert rest["loss"] == whole["loss"]
     saved = CheckpointManager(str(tmp_path / "a" / "ckpt")).load()["model"]
     norms = [k for k in saved if ".norm." in k]
     assert norms and any(not torch.equal(saved[k], torch.ones_like(saved[k]))
                          for k in norms if k.endswith("weight"))
-    model = build_model(_tiny_cfg(tmp_path / "c"), "cpu")
+    model = build_model(tiny_cfg(tmp_path / "c", use_norm=True), "cpu")
     load_model_weights(model, str(tmp_path / "a" / "ckpt"))
     for k, v in model.state_dict().items():
         assert torch.equal(v, saved[k]), k
@@ -328,12 +291,12 @@ def ranks(images, jax_model, tmp_path_factory):
     pallas and fused), then one data-parallel use_norm step."""
     im1, im2 = images
     sd = _port_model(jax_model[1]).state_dict()
-    cfg = _tiny_cfg("unused")
+    cfg = tiny_cfg("unused", use_norm=True)
     cfg = dataclasses.replace(
         cfg, model=dataclasses.replace(cfg.model, **SMALL),
         train=dataclasses.replace(cfg.train, global_batch=2,
                                   weight_decay=0.0))
-    batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
+    batch = to_torch(rendered_batch(HW, (20, 21)))
     tasks = [dict(kind="forward", model=dict(SMALL, corr_backend=b),
                   state_dict=sd, im1=torch.from_numpy(im1[:1]),
                   im2=torch.from_numpy(im2[:1]))
@@ -370,7 +333,7 @@ def test_use_norm_under_a_mesh_matches_jax(ranks, jax_spatial, b):
         got = rank[b]["flows"]
         assert len(got) == len(want) == 3
         for g, w in zip(got, want):
-            assert _rel_err(g.numpy(), w) <= TOL
+            assert rel_err(g.numpy(), w, floor=1e-30) <= TOL
 
 
 def test_use_norm_under_a_mesh_equals_the_unsharded_forward(ranks, images):
@@ -379,7 +342,7 @@ def test_use_norm_under_a_mesh_equals_the_unsharded_forward(ranks, images):
     with torch.no_grad():
         want = model(*(torch.from_numpy(x[:1]) for x in images))
     for g, w in zip(ranks["forward"][0][0]["flows"], want):
-        assert _rel_err(g.numpy(), w.numpy()) <= TOL
+        assert rel_err(g.numpy(), w.numpy(), floor=1e-30) <= TOL
 
 
 def test_use_norm_two_ranks_equal_one_process(ranks, one_thread):
@@ -395,7 +358,7 @@ def test_use_norm_two_ranks_equal_one_process(ranks, one_thread):
     assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
 
     def rel(grads):
-        return max(_rel_err(grads[k], w.numpy())
+        return max(rel_err(grads[k], w.numpy(), floor=1e-30)
                    for k, w in one["grads"][0].items())
 
     floor = 0.0

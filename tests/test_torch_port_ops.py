@@ -25,19 +25,8 @@ from pwcnet_tpu_torch.ops import (conv_same, cost_volume, cost_volume_ref,
 from pwcnet_tpu_torch.ops.kernels import (build, cost_volume_kernel,
                                           stem_kernel, warp_corr_kernel)
 
-
-def _t(a):
-    return torch.from_numpy(np.asarray(a))
-
-
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / np.abs(want).max()
-
-
-def _need_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+from torch_port_util import (need_cuda, rel_err, stem_params, to_torch,
+                             torch_stem_params)
 
 
 # ---------------------------------------------------------------------------
@@ -50,7 +39,7 @@ def test_cost_volume_ref_matches_jax(shape, d):
     rng = np.random.default_rng(0)
     f1 = rng.standard_normal(shape).astype(np.float32)
     f2 = rng.standard_normal(shape).astype(np.float32)
-    got = cost_volume_ref(_t(f1), _t(f2), d).numpy()
+    got = cost_volume_ref(to_torch(f1), to_torch(f2), d).numpy()
     want_lax = np.asarray(cost_volume_lax(jnp.asarray(f1), jnp.asarray(f2), d))
     want_pallas = np.asarray(cost_volume_pallas(
         jnp.asarray(f1), jnp.asarray(f2), max_displacement=d, interpret=True))
@@ -63,7 +52,7 @@ def test_cost_volume_ref_bf16_matches_lax():
     rng = np.random.default_rng(1)
     f1 = rng.uniform(-1, 1, (2, 7, 13, 24)).astype(np.float32)
     f2 = rng.uniform(-1, 1, (2, 7, 13, 24)).astype(np.float32)
-    t1, t2 = _t(f1).bfloat16(), _t(f2).bfloat16()
+    t1, t2 = to_torch(f1).bfloat16(), to_torch(f2).bfloat16()
     got = cost_volume_ref(t1, t2).float().numpy()
     want = np.asarray(cost_volume_lax(
         jnp.asarray(f1, jnp.bfloat16), jnp.asarray(f2, jnp.bfloat16)
@@ -78,7 +67,7 @@ def test_cost_volume_ref_bf16_matches_lax():
 
 def test_cost_volume_dispatches_to_plain_on_cpu():
     rng = np.random.default_rng(2)
-    f1 = _t(rng.standard_normal((1, 5, 6, 8)).astype(np.float32))
+    f1 = to_torch(rng.standard_normal((1, 5, 6, 8)).astype(np.float32))
     before = dict(cost_volume_kernel.LAUNCHES)
     np.testing.assert_array_equal(cost_volume(f1, f1).numpy(),
                                   cost_volume_ref(f1, f1).numpy())
@@ -97,7 +86,7 @@ def test_cost_volume_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("shape", [(2, 7, 13, 5), (1, 9, 33, 196),
                                    (3, 20, 70, 32)])
 def test_cost_volume_kernel_matches_plain(shape, dtype, tol):
-    _need_cuda()
+    need_cuda()
     g = torch.Generator(device="cuda").manual_seed(0)
     f1 = torch.randn(shape, device="cuda", generator=g).to(dtype)
     f2 = torch.randn(shape, device="cuda", generator=g).to(dtype)
@@ -123,12 +112,12 @@ def test_cost_volume_plain_backward_matches_jax(shape, d):
         a, b, max_displacement=d, interpret=True), jnp.asarray(f1),
         jnp.asarray(f2))
     want = vjp(jnp.asarray(g))
-    a1, a2 = _t(f1).requires_grad_(), _t(f2).requires_grad_()
+    a1, a2 = to_torch(f1).requires_grad_(), to_torch(f2).requires_grad_()
     got = torch.autograd.grad(cost_volume(a1, a2, max_displacement=d),
-                              (a1, a2), _t(g))
+                              (a1, a2), to_torch(g))
     for gt, wt in zip(got, want):
         assert gt.shape == shape
-        assert _rel_err(gt.numpy(), wt) <= 1e-5
+        assert rel_err(gt.numpy(), wt) <= 1e-5
 
 
 def test_cost_volume_backward_wrapper_refuses_cpu_tensors():
@@ -143,7 +132,7 @@ def test_cost_volume_backward_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("shape", [(2, 7, 13, 5), (8, 6, 7, 196),
                                    (3, 20, 70, 32)])
 def test_cost_volume_backward_kernels_match_plain(shape, dtype, tol):
-    _need_cuda()
+    need_cuda()
     g = torch.Generator(device="cuda").manual_seed(1)
     f1, f2 = (torch.randn(shape, device="cuda", generator=g).to(dtype)
               for _ in range(2))
@@ -163,36 +152,25 @@ def test_cost_volume_backward_kernels_match_plain(shape, dtype, tol):
 # Stem
 # ---------------------------------------------------------------------------
 
-def _stem_params(rng):
-    shapes = [(3, 16), (16, 16), (16, 32), (32, 32)]
-    return [(rng.standard_normal((3, 3, ci, co)).astype(np.float32) * 0.2,
-             rng.standard_normal(co).astype(np.float32) * 0.1)
-            for ci, co in shapes]
-
-
-def _torch_stem_params(params):
-    return [(_t(w.transpose(3, 2, 0, 1).copy()), _t(b)) for w, b in params]
-
-
 @pytest.mark.parametrize("shape", [(2, 32, 64, 3), (1, 40, 96, 3)])
 def test_stem_ref_matches_jax(shape):
     rng = np.random.default_rng(3)
     im = rng.random(shape, np.float32)
-    params = _stem_params(rng)
+    params = stem_params(rng)
     jparams = tuple((jnp.asarray(w), jnp.asarray(b)) for w, b in params)
-    got = stem_kernel.stem_ref(_t(im), _torch_stem_params(params)).numpy()
+    got = stem_kernel.stem_ref(to_torch(im), torch_stem_params(params)).numpy()
     want_ref = np.asarray(jax_stem_ref(jnp.asarray(im), jparams))
     want_pallas = np.asarray(stem_pallas(jnp.asarray(im), jparams,
                                          interpret=True))
     assert got.shape == (shape[0], shape[1] // 4, shape[2] // 4, 32)
-    assert _rel_err(got, want_ref) <= 1e-5
-    assert _rel_err(got, want_pallas) <= 1e-5
+    assert rel_err(got, want_ref) <= 1e-5
+    assert rel_err(got, want_pallas) <= 1e-5
 
 
 def test_stem_dispatches_to_plain_on_cpu():
     rng = np.random.default_rng(4)
-    im = _t(rng.random((1, 16, 24, 3), np.float32))
-    params = _torch_stem_params(_stem_params(rng))
+    im = to_torch(rng.random((1, 16, 24, 3), np.float32))
+    params = torch_stem_params(stem_params(rng))
     before = dict(stem_kernel.LAUNCHES)
     np.testing.assert_array_equal(stem_kernel.stem(im, params).numpy(),
                                   stem_kernel.stem_ref(im, params).numpy())
@@ -200,7 +178,7 @@ def test_stem_dispatches_to_plain_on_cpu():
 
 
 def test_stem_kernel_wrapper_refuses_cpu_tensors():
-    params = _torch_stem_params(_stem_params(np.random.default_rng(5)))
+    params = torch_stem_params(stem_params(np.random.default_rng(5)))
     with pytest.raises(ValueError, match="CUDA"):
         stem_kernel.stem_cuda(torch.zeros(1, 8, 8, 3), params)
 
@@ -210,12 +188,12 @@ def test_stem_kernel_wrapper_refuses_cpu_tensors():
                                        (torch.bfloat16, 3e-2)])
 @pytest.mark.parametrize("shape", [(1, 64, 192, 3), (2, 36, 40, 3)])
 def test_stem_kernel_matches_plain(shape, dtype, tol):
-    _need_cuda()
+    need_cuda()
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(6)
     params = [(w.cuda(), b.cuda())
-              for w, b in _torch_stem_params(_stem_params(rng))]
-    im = _t(rng.random(shape, np.float32)).cuda().to(dtype)
+              for w, b in torch_stem_params(stem_params(rng))]
+    im = to_torch(rng.random(shape, np.float32)).cuda().to(dtype)
     with torch.no_grad():
         got = stem_kernel.stem_cuda(im, params).float()
         want = stem_kernel.stem_ref(im, params).float()
@@ -230,7 +208,7 @@ def test_stem_plain_backward_matches_jax(hw):
     the image and all eight parameters."""
     rng = np.random.default_rng(11)
     im = rng.random((2, *hw, 3), np.float32)
-    params = _stem_params(rng)
+    params = stem_params(rng)
     g = rng.standard_normal((2, hw[0] // 4, hw[1] // 4, 32)).astype(
         np.float32)
     jparams = tuple((jnp.asarray(w), jnp.asarray(b)) for w, b in params)
@@ -238,21 +216,22 @@ def test_stem_plain_backward_matches_jax(hw):
                                            jnp.asarray(g), interpret=True)
     _, vjp = jax.vjp(jax_stem_ref, jnp.asarray(im), jparams)
     r_im, r_params = vjp(jnp.asarray(g))
-    a = _t(im).requires_grad_()
+    a = to_torch(im).requires_grad_()
     tp = [(w.requires_grad_(), b.requires_grad_())
-          for w, b in _torch_stem_params(params)]
+          for w, b in torch_stem_params(params)]
     got = torch.autograd.grad(stem_kernel.stem(a, tp),
-                              [a, *[t for pair in tp for t in pair]], _t(g))
+                              [a, *[t for pair in tp for t in pair]],
+                              to_torch(g))
     for want_im, want_p in ((k_im, k_params), (r_im, r_params)):
-        assert _rel_err(got[0].numpy(), want_im) <= 1e-5
+        assert rel_err(got[0].numpy(), want_im) <= 1e-5
         for i, (w, b) in enumerate(want_p):
-            assert _rel_err(got[1 + 2 * i].numpy().transpose(2, 3, 1, 0),
+            assert rel_err(got[1 + 2 * i].numpy().transpose(2, 3, 1, 0),
                             w) <= 1e-5
-            assert _rel_err(got[2 + 2 * i].numpy(), b) <= 1e-5
+            assert rel_err(got[2 + 2 * i].numpy(), b) <= 1e-5
 
 
 def test_stem_backward_wrapper_refuses_cpu_tensors():
-    params = _torch_stem_params(_stem_params(np.random.default_rng(12)))
+    params = torch_stem_params(stem_params(np.random.default_rng(12)))
     with pytest.raises(ValueError, match="CUDA"):
         stem_kernel.stem_bwd_cuda(torch.zeros(1, 8, 8, 3), params,
                                   torch.zeros(1, 2, 2, 32))
@@ -273,14 +252,15 @@ def test_stem_backward_kernel_matches_plain(shape, dtype):
     bf16-rounded inputs, as tests/test_stem_kernel.py holds the Pallas
     backward, and within BF16_MODEL_TOL of stem_bwd_bf16_ref, the kernel's
     own arithmetic."""
-    _need_cuda()
+    need_cuda()
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(13)
     params = [(w.cuda(), b.cuda())
-              for w, b in _torch_stem_params(_stem_params(rng))]
-    im = _t(rng.random(shape, np.float32)).cuda().to(dtype)
-    g = _t(rng.standard_normal((shape[0], shape[1] // 4, shape[2] // 4, 32))
-           .astype(np.float32)).cuda().to(dtype)
+              for w, b in torch_stem_params(stem_params(rng))]
+    im = to_torch(rng.random(shape, np.float32)).cuda().to(dtype)
+    g = to_torch(rng.standard_normal(
+        (shape[0], shape[1] // 4, shape[2] // 4, 32)).astype(
+            np.float32)).cuda().to(dtype)
 
     def plain(im, ps, g):
         a = im.clone().requires_grad_()
@@ -294,19 +274,19 @@ def test_stem_backward_kernel_matches_plain(shape, dtype):
     want = plain(im, params, g)
     if dtype == torch.float32:
         for x, y in zip(got, want):
-            assert _rel_err(x.cpu(), y.cpu()) <= 1e-4
+            assert rel_err(x.cpu(), y.cpu()) <= 1e-4
         return
     oracle = plain(im.float(), [(w.to(dtype).float(), b.to(dtype).float())
                                 for w, b in params], g.float())
     for x, y, o in zip(got, want, oracle):
-        err_k = _rel_err(x.float().cpu(), o.cpu())
-        err_x = _rel_err(y.float().cpu(), o.cpu())
+        err_k = rel_err(x.float().cpu(), o.cpu())
+        err_x = rel_err(y.float().cpu(), o.cpu())
         assert err_k <= max(3 * err_x, 5e-3), (err_k, err_x)
     m_im, mp = stem_kernel.stem_bwd_bf16_ref(im, params, g)
     model = [m_im] + [t for pair in mp for t in pair]
     for i, (x, m) in enumerate(zip(got, model)):
         tol = stem_kernel.BF16_MODEL_TOL[0 if i == 0 else 1]
-        assert _rel_err(x.float().cpu(), m.float().cpu()) <= tol, i
+        assert rel_err(x.float().cpu(), m.float().cpu()) <= tol, i
 
 
 @pytest.mark.cuda
@@ -314,12 +294,13 @@ def test_stem_backward_kernel_matches_plain(shape, dtype):
 def test_stem_backward_kernel_is_deterministic(need_im):
     """bf16: two calls on the same inputs give bit-identical gradients (a
     fixed split of the weight-gradient sums, reduced in a fixed order)."""
-    _need_cuda()
+    need_cuda()
     rng = np.random.default_rng(15)
     params = [(w.cuda(), b.cuda())
-              for w, b in _torch_stem_params(_stem_params(rng))]
-    im = _t(rng.random((4, 64, 96, 3), np.float32)).cuda().bfloat16()
-    g = _t(rng.standard_normal((4, 16, 24, 32)).astype(np.float32)).cuda()
+              for w, b in torch_stem_params(stem_params(rng))]
+    im = to_torch(rng.random((4, 64, 96, 3), np.float32)).cuda().bfloat16()
+    g = to_torch(rng.standard_normal((4, 16, 24, 32)).astype(
+        np.float32)).cuda()
     first = stem_kernel.stem_bwd_cuda(im, params, g, need_im=need_im)
     second = stem_kernel.stem_bwd_cuda(im, params, g, need_im=need_im)
     torch.cuda.synchronize()
@@ -347,11 +328,11 @@ def test_conv_same_matches_lax(hw, stride, dilation):
         jnp.asarray(x), jnp.asarray(w), (stride, stride), "SAME",
         rhs_dilation=(dilation, dilation),
         dimension_numbers=("NHWC", "HWIO", "NHWC")) + b
-    got = conv_same(_t(x).permute(0, 3, 1, 2),
-                    _t(w.transpose(3, 2, 0, 1).copy()), _t(b),
+    got = conv_same(to_torch(x).permute(0, 3, 1, 2),
+                    to_torch(w.transpose(3, 2, 0, 1).copy()), to_torch(b),
                     stride=stride, dilation=dilation).permute(0, 2, 3, 1)
     assert got.shape == want.shape
-    assert _rel_err(got.numpy(), want) <= 1e-5
+    assert rel_err(got.numpy(), want) <= 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -366,11 +347,11 @@ def test_warp_matches_jax(dtype):
     # outside, exercising the corner masks and the coverage mask.
     flow = rng.uniform(-6, 6, (2, 9, 11, 2)).astype(np.float32)
     if dtype == "bfloat16":
-        tf = _t(feat).bfloat16()
+        tf = to_torch(feat).bfloat16()
         jf = jnp.asarray(feat, jnp.bfloat16)
     else:
-        tf, jf = _t(feat), jnp.asarray(feat)
-    got = warp_bilinear(tf, _t(flow))
+        tf, jf = to_torch(feat), jnp.asarray(feat)
+    got = warp_bilinear(tf, to_torch(flow))
     assert got.dtype == tf.dtype
     got = got.float().numpy()
     for fn in (jax_warp, jax_warp_ref):
@@ -386,7 +367,7 @@ def test_warp_matches_jax(dtype):
 def test_resize_matches_jax(mode, in_hw, out_hw):
     rng = np.random.default_rng(9)
     x = rng.standard_normal((2, *in_hw, 2)).astype(np.float32)
-    got = resize_bilinear(_t(x), out_hw, mode).numpy()
+    got = resize_bilinear(to_torch(x), out_hw, mode).numpy()
     want = np.asarray(jax_resize(jnp.asarray(x), out_hw, mode))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
 
@@ -402,13 +383,15 @@ def test_downsample_matches_jax_resize(in_hw, out_hw):
     x = rng.standard_normal((2, *in_hw, 2)).astype(np.float32)
     want = np.asarray(jax.image.resize(jnp.asarray(x), (2, *out_hw, 2),
                                        "bilinear"))
-    np.testing.assert_allclose(downsample_bilinear(_t(x), out_hw).numpy(),
-                               want, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(
+        downsample_bilinear(to_torch(x), out_hw).numpy(), want, atol=1e-6,
+        rtol=0)
     m = (rng.random((2, *in_hw)) > 0.5).astype(np.float32)
     want_m = np.asarray(jax.image.resize(jnp.asarray(m), (2, *out_hw),
                                          "bilinear"))
-    np.testing.assert_allclose(downsample_bilinear(_t(m), out_hw).numpy(),
-                               want_m, atol=1e-6, rtol=0)
+    np.testing.assert_allclose(
+        downsample_bilinear(to_torch(m), out_hw).numpy(), want_m, atol=1e-6,
+        rtol=0)
 
 
 def test_resize_half_pixel_refuses_downsampling():

@@ -36,6 +36,8 @@ from pwcnet_tpu_torch.train.parity import parity_report
 from pwcnet_tpu_torch.train.schedule import ScheduleConfig, make_optimizer
 from pwcnet_tpu_torch.train.state import TrainState
 
+from torch_port_util import one_thread, rel_err
+
 TOL = 1e-4
 # "stem": 4 levels, min_level 2, the pyramid's first four convs go to the
 # stem; "plain": 3 levels, min_level 1, no stem; "norm": use_norm, no stem.
@@ -45,21 +47,7 @@ CFGS = {"stem": dict(num_levels=4, output_level=2, search_range=2),
                      use_norm=True)}
 MODEL_KW = dict(num_levels=3, output_level=2, search_range=2,
                 corr_backend="lax", dtype="float32")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One torch thread: these CPU ops are small, and under parallel test
-    workers more threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / np.abs(want).max()
+pytestmark = pytest.mark.usefixtures("one_thread")
 
 
 def _net(cfg):
@@ -133,7 +121,7 @@ def flows(imported):
 def test_imported_flows_match_jax_per_level(flows, name, i):
     want, got = flows[name][0][i], flows[name][1][i]
     assert got.shape == want.shape
-    assert _rel_err(got, want) <= TOL
+    assert rel_err(got, want) <= TOL
 
 
 @pytest.mark.parametrize("wrap", ["plain", "state_dict", "model",

@@ -40,22 +40,11 @@ from pwcnet_tpu_torch.train.schedule import ScheduleConfig, make_optimizer
 from pwcnet_tpu_torch.train.state import TrainState
 from pwcnet_tpu_torch.train.step import make_train_step
 
+from torch_port_util import jax_npz_params, nchw, rel_err, to_torch
+
 NPZ = (Path(__file__).resolve().parents[1] / "runs" / "raft-synthetic"
        / "params_step20000_bf16.npz")
 TOL = 1e-4  # f32 forwards, per iteration, relative to max|ref|
-
-
-def _t(a):
-    return torch.from_numpy(np.array(a))
-
-
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
-
-
-def _nchw(a):
-    return _t(a).permute(0, 3, 1, 2)
 
 
 def _nhwc(t):
@@ -71,8 +60,8 @@ def _load_sub(module, params, prefix, strip):
         key = torch_key(f"{prefix}/{path}")
         assert key.startswith(strip)
         v = np.asarray(v)
-        state[key[len(strip):]] = _t(v.transpose(3, 2, 0, 1) if v.ndim == 4
-                                     else v)
+        state[key[len(strip):]] = to_torch(
+            v.transpose(3, 2, 0, 1) if v.ndim == 4 else v)
     module.load_state_dict(state)
 
 
@@ -98,11 +87,12 @@ def test_convex_upsample_matches_jax(factor):
     flow = rng.standard_normal((2, 4, 6, 2)).astype(np.float32) * 3
     logits = rng.standard_normal((2, 4, 6, 9 * factor ** 2)).astype(
         np.float32) * 2
-    got = traft.convex_upsample(_t(flow), _t(logits), factor).numpy()
+    got = traft.convex_upsample(to_torch(flow), to_torch(logits),
+                                factor).numpy()
     want = np.asarray(jraft.convex_upsample(jnp.asarray(flow),
                                             jnp.asarray(logits), factor))
     assert got.shape == want.shape == (2, 4 * factor, 6 * factor, 2)
-    assert _rel_err(got, want) <= 1e-6
+    assert rel_err(got, want, floor=1e-30) <= 1e-6
 
 
 @pytest.mark.parametrize("kind", ["normal", "far", "nan"])
@@ -124,8 +114,8 @@ def test_warp_from_table_matches_jax(kind):
         return j_from_table(j_table(f), f.shape, jnp.asarray(flow))
 
     want = np.asarray(jfn(jnp.asarray(feat)))
-    f = _t(feat).requires_grad_()
-    got = warp_bilinear_from_table(warp_table(f), feat.shape, _t(flow))
+    f = to_torch(feat).requires_grad_()
+    got = warp_bilinear_from_table(warp_table(f), feat.shape, to_torch(flow))
     np.testing.assert_array_equal(np.isnan(got.detach().numpy()),
                                   np.isnan(want))
     np.testing.assert_array_equal(np.nan_to_num(got.detach().numpy()),
@@ -133,10 +123,10 @@ def test_warp_from_table_matches_jax(kind):
     assert np.isnan(want).any() == (kind == "nan")
     if kind == "nan":
         return
-    (got * _t(g)).sum().backward()
+    (got * to_torch(g)).sum().backward()
     want_d = np.asarray(jax.grad(lambda f: (jfn(f) * g).sum())(
         jnp.asarray(feat)))
-    assert _rel_err(f.grad.numpy(), want_d) <= 1e-5
+    assert rel_err(f.grad.numpy(), want_d, floor=1e-30) <= 1e-5
 
 
 # -- submodules, weights bridged --------------------------------------------
@@ -148,17 +138,19 @@ def test_resblock_and_encoder_match_jax():
     pb = jax.jit(jb.init)(jax.random.key(1), x)["params"]
     tb = traft.ResBlock(32, 48, 2)
     _load_sub(tb, pb, "fnet/ResBlock_0", "fnet.blocks.0.")
-    got = _nhwc(tb(_nchw(x)))
-    assert _rel_err(got, np.asarray(jb.apply({"params": pb}, x))) <= 1e-5
+    got = _nhwc(tb(nchw(x)))
+    want = np.asarray(jb.apply({"params": pb}, x))
+    assert rel_err(got, want, floor=1e-30) <= 1e-5
 
     im = rng.random((2, 64, 96, 3)).astype(np.float32)
     je = jraft.RAFTEncoder(dim=160)
     pe = jax.jit(je.init)(jax.random.key(2), im)["params"]
     te = traft.RAFTEncoder(160)
     _load_sub(te, pe, "cnet", "cnet.")
-    got = _nhwc(te(_nchw(im)))
+    got = _nhwc(te(nchw(im)))
     assert got.shape == (2, 8, 12, 160)
-    assert _rel_err(got, np.asarray(je.apply({"params": pe}, im))) <= 1e-5
+    want = np.asarray(je.apply({"params": pe}, im))
+    assert rel_err(got, want, floor=1e-30) <= 1e-5
 
 
 @pytest.mark.parametrize("fuse_zr", [False, True])
@@ -171,8 +163,9 @@ def test_sep_conv_gru_matches_jax(fuse_zr):
     tg = traft.SepConvGRU(96, 160, fuse_zr)
     assert len(tg.convs) == len(pg) == (4 if fuse_zr else 6)
     _load_sub(tg, pg, "SepConvGRU_0", "gru.")
-    got = _nhwc(tg(_nchw(h), _nchw(x)))
-    assert _rel_err(got, np.asarray(jg.apply({"params": pg}, h, x))) <= 1e-5
+    got = _nhwc(tg(nchw(h), nchw(x)))
+    want = np.asarray(jg.apply({"params": pg}, h, x))
+    assert rel_err(got, want, floor=1e-30) <= 1e-5
 
 
 def test_motion_encoder_matches_jax():
@@ -183,10 +176,10 @@ def test_motion_encoder_matches_jax():
     pm = jax.jit(jm.init)(jax.random.key(4), corr, flow)["params"]
     tm = traft.MotionEncoder(162)
     _load_sub(tm, pm, "MotionEncoder_0", "menc.")
-    got = _nhwc(tm(_nchw(corr), _nchw(flow)))
+    got = _nhwc(tm(nchw(corr), nchw(flow)))
     want = np.asarray(jm.apply({"params": pm}, corr, flow))
     assert got.shape == want.shape == (2, 8, 12, 96)
-    assert _rel_err(got, want) <= 1e-5
+    assert rel_err(got, want, floor=1e-30) <= 1e-5
 
 
 # -- the whole forward ------------------------------------------------------
@@ -209,26 +202,12 @@ def test_forward_matches_jax_per_iteration(init_pair, train):
     want = jax.jit(lambda p, a, b: jm.apply(p, a, b, train=train))(
         params, im1, im2)
     with torch.no_grad():
-        got = model(_t(im1), _t(im2), train=train)
+        got = model(to_torch(im1), to_torch(im2), train=train)
     assert len(got) == len(want) == (3 if train else 1)
     for g, w in zip(got, want):
         assert g.shape == (1, 64, 96, 2) and g.dtype == torch.float32
-        assert _rel_err(g.numpy(), w) <= TOL
+        assert rel_err(g.numpy(), w, floor=1e-30) <= TOL
     assert np.abs(np.asarray(want[-1])).max() > 1e-2  # the flows carry signal
-
-
-def _jax_npz_params():
-    """The trained npz as the JAX model's f32 params: bf16 bits << 16."""
-    tree = {}
-    with np.load(NPZ) as z:
-        for key in z.files:
-            a = (z[key].view(np.uint16).astype(np.uint32) << 16).view(
-                np.float32)
-            node = tree
-            for p in key.split("/")[1:-1]:
-                node = node.setdefault(p, {})
-            node[key.split("/")[-1]] = a
-    return {"params": tree}
 
 
 @pytest.fixture(scope="module")
@@ -246,12 +225,12 @@ def test_trained_checkpoint_matches_jax_per_iteration(trained):
     im1, im2 = s["im1"][None], s["im2"][None]
     jm = jraft.RAFT(corr_backend="lax")
     want = jax.jit(lambda p, a, b: jm.apply(p, a, b, train=True))(
-        _jax_npz_params(), im1, im2)
+        jax_npz_params(NPZ), im1, im2)
     with torch.no_grad():
-        got = trained(_t(im1), _t(im2))
+        got = trained(to_torch(im1), to_torch(im2))
     assert len(got) == len(want) == 12
     for i, (g, w) in enumerate(zip(got, want)):
-        assert _rel_err(g.numpy(), w) <= TOL, i
+        assert rel_err(g.numpy(), w, floor=1e-30) <= TOL, i
     epe = np.sqrt(((got[-1][0].numpy() - s["flow"]) ** 2).sum(-1)).mean()
     assert epe < 0.5, epe  # measured 0.268 px
 
@@ -268,11 +247,11 @@ def test_predict_flow_and_evaluate_dataset_match_jax(trained):
     s = SyntheticFlow(split="val", hw=(128, 160))[3]
     im1, im2 = s["im1"][:120, :150], s["im2"][:120, :150]
     jm = jraft.RAFT(corr_backend="lax")
-    params = _jax_npz_params()
+    params = jax_npz_params(NPZ)
     got = predict_flow(trained, im1, im2)
     want = jax_predict(jm, params, im1, im2)
     assert got.shape == want.shape == (120, 150, 2)
-    assert _rel_err(got, want) <= TOL
+    assert rel_err(got, want, floor=1e-30) <= TOL
     ev = evaluate_dataset(trained, SyntheticFlow(split="val", hw=(128, 160)),
                           batch=2, limit=2)
     jev = jax_evaluate(jm, params, JaxSyntheticFlow(split="val",
@@ -287,7 +266,7 @@ def test_read_flax_npz_reads_bf16_bits():
     tree = read_flax_npz(str(NPZ))
     k = tree["mask_head_2"]["kernel"]
     assert k.dtype == torch.bfloat16 and tuple(k.shape) == (1, 1, 128, 576)
-    want = _jax_npz_params()["params"]["mask_head_2"]["kernel"]
+    want = jax_npz_params(NPZ)["params"]["mask_head_2"]["kernel"]
     np.testing.assert_array_equal(k.float().numpy(), want)
     assert len(_flatten(tree)) == 70
 
@@ -306,8 +285,8 @@ def test_sequence_loss_matches_jax(with_valid):
     for hw in ((4, 6), (32, 48)):
         flows = [rng.standard_normal((2, *hw, 2)).astype(np.float32) * 3
                  for _ in range(3)]
-        got = tl.sequence_loss([_t(f) for f in flows], _t(gt),
-                               None if v is None else _t(v))
+        got = tl.sequence_loss([to_torch(f) for f in flows], to_torch(gt),
+                               None if v is None else to_torch(v))
         want = float(jl.sequence_loss([jnp.asarray(f) for f in flows],
                                       jnp.asarray(gt),
                                       None if v is None else jnp.asarray(v)))
@@ -324,9 +303,10 @@ def test_inscan_loss_equals_sequence_loss(init_pair):
     valid = np.ones((1, 64, 96), np.float32)
     valid[:, -4:] = 0
     with torch.no_grad():
-        flows = model(_t(im1), _t(im2))
-        final, loss = model(_t(im1), _t(im2), gt=_t(gt), valid=_t(valid))
-        ref = tl.sequence_loss(flows, _t(gt), _t(valid))
+        flows = model(to_torch(im1), to_torch(im2))
+        final, loss = model(to_torch(im1), to_torch(im2), gt=to_torch(gt),
+                            valid=to_torch(valid))
+        ref = tl.sequence_loss(flows, to_torch(gt), to_torch(valid))
     assert abs(loss.item() - ref.item()) <= 1e-5 * ref.item()
     np.testing.assert_array_equal(final[0].numpy(), flows[-1].numpy())
     _, want = jax.jit(lambda p, a, b: jm.apply(
@@ -375,7 +355,7 @@ def test_train_step_matches_jax(step_setup, kind):
                                 ScheduleConfig(base_lr=1e-4))
     _, tmet = make_train_step(model, opt, sched, loss_kind=kind)(
         TrainState.create(model, opt, sched, seed=1),
-        {k: _t(v) for k, v in batch.items()})
+        {k: to_torch(v) for k, v in batch.items()})
     for k in ("loss", "train_epe", "grad_norm"):
         want = float(jmet[k])
         assert abs(float(tmet[k]) - want) <= 1e-5 * abs(want), (k, tmet)
@@ -383,8 +363,8 @@ def test_train_step_matches_jax(step_setup, kind):
     errs = {}
     for path, g in jgrads.items():
         tg = tgrads[torch_key(path)].grad.numpy()
-        errs[path] = _rel_err(tg, g.transpose(3, 2, 0, 1) if g.ndim == 4
-                              else g)
+        errs[path] = rel_err(tg, g.transpose(3, 2, 0, 1) if g.ndim == 4
+                              else g, floor=1e-30)
     assert len(errs) == len(tgrads)
     assert max(errs.values()) <= 1e-4, sorted(errs.items(),
                                               key=lambda t: -t[1])[:3]
@@ -397,13 +377,13 @@ def test_divisor_raises_as_jax_does():
     with pytest.raises(ValueError, match="divisible by 16"):
         jax.jit(jraft.RAFT(num_iters=1).init)(jax.random.key(0), bad, bad)
     with pytest.raises(ValueError, match="divisible by 16"):
-        traft.RAFT(num_iters=1, device="cpu")(_t(bad), _t(bad))
+        traft.RAFT(num_iters=1, device="cpu")(to_torch(bad), to_torch(bad))
 
 
 def test_full_res_flow_rescales_u_and_v_apart():
     flow = np.ones((1, 8, 16, 2), np.float32)
     got = traft.RAFT(num_iters=1, device="cpu").full_res_flow(
-        [_t(flow)], (16, 64)).numpy()
+        [to_torch(flow)], (16, 64)).numpy()
     want = np.asarray(jraft.RAFT(num_iters=1).full_res_flow(
         [jnp.asarray(flow)], (16, 64)))
     np.testing.assert_allclose(got, want, rtol=1e-6)

@@ -22,17 +22,15 @@ from pwcnet_tpu_torch.models.raft_allpairs import RAFTAllPairs
 from pwcnet_tpu_torch.ops.corr_lookup import corr_lookup_ref
 from pwcnet_tpu_torch.ops.corr_pyramid import corr_pyramid_ref
 
+from torch_port_util import make_model, rel_err, shifted_pair
+
+HW = (64, 128)      # the model cases' frames
 CFG = dict(feature_dim=256, hidden_dim=128, context_dim=128, corr_radius=4,
            corr_levels=4, iters=3, pad_divisor=8)
 TOL = 1e-4           # the f32 model and plain ops against the reference
 # The bf16 model against the f32 reference: 0.006-0.0094 of max|ref| on
 # three seeds at 64x128; the reference in fp8 lies 0.09-0.16 away.
 BF16_TOL = 0.03
-
-
-def _rel(got, want) -> float:
-    got, want = got.double(), want.double()
-    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
 def _weights(seed: int) -> dict:
@@ -54,19 +52,6 @@ def _weights(seed: int) -> dict:
     return out
 
 
-def _model(w, dtype=torch.float32, iters=3, backend="pallas"):
-    m = RAFTAllPairs(num_iters=iters, dtype=dtype, device="cpu",
-                     corr_backend=backend)
-    m.load_state_dict(w)
-    return m
-
-
-def _pair(seed: int, hw=(64, 128)):
-    g = torch.Generator().manual_seed(seed)
-    im1 = torch.rand((1, *hw, 3), generator=g)
-    return im1, torch.roll(im1, (2, 3), (1, 2))
-
-
 # -- the plain ops against the reference's CorrBlock ---------------------------
 
 @pytest.mark.parametrize("shape,levels", [((2, 7, 9, 16), 2),
@@ -82,7 +67,7 @@ def test_corr_pyramid_ref_matches_the_reference(shape, levels):
     assert [tuple(t.shape) for t in got] == [
         (n, h * w, h >> lv, w >> lv) for lv in range(levels)]
     for a, b in zip(got, want):
-        assert _rel(a, b.reshape(a.shape)) <= TOL
+        assert rel_err(a, b.reshape(a.shape), floor=1e-30) <= TOL
 
 
 def _coords(n, h, w, g, spread):
@@ -110,7 +95,7 @@ def test_corr_lookup_ref_matches_the_reference(shape, levels, r):
     want = ref.lookup([t.reshape(n * h * w, 1, *t.shape[-2:]) for t in pyr],
                       coords.permute(0, 3, 1, 2), r)
     assert got.shape == (n, h, w, levels * (2 * r + 1) ** 2)
-    assert _rel(got, want.permute(0, 2, 3, 1)) <= TOL
+    assert rel_err(got, want.permute(0, 2, 3, 1), floor=1e-30) <= TOL
     # Outside every level the samples are zero; the window's first index
     # moves x (RAFT's meshgrid(dy, dx) added to (x, y)).
     assert got[:, 0, 0, :(2 * r + 1) ** 2].abs().max() == 0
@@ -131,23 +116,26 @@ def test_corr_lookup_ref_matches_the_reference(shape, levels, r):
 @pytest.mark.parametrize("backend", ["pallas", "lax"])
 def test_f32_model_matches_the_reference(backend):
     w = _weights(3)
-    im1, im2 = _pair(3)
+    im1, im2 = shifted_pair(3, HW, torch_batch=True)
     with torch.no_grad():
-        got = _model(w, backend=backend)(im1, im2, train=False)
+        got = make_model("raft_allpairs", state_dict=w, num_iters=3,
+                         corr_backend=backend)(im1, im2, train=False)
         want = ref.forward(w, CFG, im1, im2)
     assert len(got) == 1 and got[0].shape == (1, 64, 128, 2)
-    assert _rel(got[0], want[0]) <= TOL
+    assert rel_err(got[0], want[0], floor=1e-30) <= TOL
 
 
 def test_bf16_model_is_within_rounding_and_fp8_is_not():
     w = _weights(4)
-    im1, im2 = _pair(4)
+    im1, im2 = shifted_pair(4, HW, torch_batch=True)
     with torch.no_grad():
         want = ref.forward(w, CFG, im1, im2)[0]
-        got = _model(w, torch.bfloat16)(im1, im2, train=False)[0]
+        got = make_model("raft_allpairs", state_dict=w, num_iters=3,
+                         dtype=torch.bfloat16)(im1, im2, train=False)[0]
         fp8 = ref.forward(w, CFG, im1, im2, Precision("fp8"))[0]
     assert got.dtype == torch.float32
-    assert _rel(got, want) <= BF16_TOL < _rel(fp8, want)
+    assert (rel_err(got, want, floor=1e-30) <= BF16_TOL
+            < rel_err(fp8, want, floor=1e-30))
 
 
 def test_f32_gradients_match_the_references_autograd():
@@ -157,10 +145,10 @@ def test_f32_gradients_match_the_references_autograd():
     and 1e-3 of the largest leaf's."""
     w = _weights(5)
     cfg = dict(CFG, iters=2)
-    im1, im2 = _pair(5)
+    im1, im2 = shifted_pair(5, HW, torch_batch=True)
     proj = torch.randn((1, 64, 128, 2), generator=torch.Generator()
                        .manual_seed(5))
-    model = _model(w, iters=2)
+    model = make_model("raft_allpairs", state_dict=w, num_iters=2)
     (model(im1, im2, train=False)[0] * proj).sum().backward()
     p = {k: v.clone().requires_grad_(not k.endswith(("running_mean",
                                                      "running_var")))
@@ -177,8 +165,8 @@ def test_f32_gradients_match_the_references_autograd():
 
 def test_train_forward_returns_every_iteration_and_the_inscan_loss():
     w = _weights(6)
-    im1, im2 = _pair(6)
-    model = _model(w, iters=3)
+    im1, im2 = shifted_pair(6, HW, torch_batch=True)
+    model = make_model("raft_allpairs", state_dict=w, num_iters=3)
     flows = model(im1, im2, train=True)
     assert len(flows) == 3 and all(f.shape == (1, 64, 128, 2) for f in flows)
     gt = torch.zeros((1, 64, 128, 2))
@@ -232,7 +220,7 @@ def test_build_model_routes_the_family():
 def test_predict_flow_pads_to_8_and_crops():
     from pwcnet_tpu_torch.train.evaluate import pad_to_divisible, predict_flow
     w = _weights(7)
-    model = _model(w, iters=2)
+    model = make_model("raft_allpairs", state_dict=w, num_iters=2)
     rng = np.random.default_rng(7)
     im1 = rng.random((60, 100, 3)).astype(np.float32)
     im2 = np.roll(im1, 2, 1)
@@ -333,7 +321,7 @@ def test_k8_matches_its_plain_op(shape, levels, dtype):
     # f32: the sum order; bf16: one rounding step of the output.
     tol = 1e-5 if dtype == torch.float32 else 2 ** -8
     for a, b in zip(got, want):
-        assert a.shape == b.shape and _rel(a, b) <= tol
+        assert a.shape == b.shape and rel_err(a, b, floor=1e-30) <= tol
 
 
 @pytest.mark.cuda
@@ -356,4 +344,4 @@ def test_k9_matches_its_plain_op(shape, levels, dtype):
     # f32: grid_sample's normalization moves a point by a few f32 steps of
     # its coordinate; bf16: one rounding step of the output.
     tol = 1e-4 if dtype == torch.float32 else 2 ** -8
-    assert got.shape == want.shape and _rel(got, want) <= tol
+    assert got.shape == want.shape and rel_err(got, want, floor=1e-30) <= tol

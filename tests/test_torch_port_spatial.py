@@ -15,7 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import NamedSharding, PartitionSpec as P
+from jax.sharding import PartitionSpec as P
 
 from pwcnet_tpu.models import PWCNet as JaxPWCNet
 from pwcnet_tpu.ops.cost_volume import cost_volume_prepadded_lax
@@ -48,6 +48,9 @@ from pwcnet_tpu_torch.parallel.spatial_ops import (STEM_RECEPTIVE, STEM_ROWS,
                                                    real_rows, stem_block,
                                                    upsample2x_block)
 
+from torch_port_util import (ext_rows, jax_sharded, rel_err, stem_params,
+                             to_torch, torch_stem_params)
+
 TOL = 1e-4
 HW = (64, 48)
 # num_levels=3: min_level 1, no stem. num_levels=4: min_level 2, the stem's
@@ -59,26 +62,6 @@ BACKENDS = ("pallas", "fused")
 SHARDS = (2, 4)
 HALOS = (2, 5)  # one hop; several hops (5 > 4 rows a shard under S = 4)
 WORKER_TIMEOUT_S = 300
-
-
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / np.abs(want).max()
-
-
-def _t(a):
-    return torch.from_numpy(np.ascontiguousarray(a))
-
-
-def _jax_sharded(mesh, x):
-    return jax.device_put(x, NamedSharding(mesh, P(None, JAX_AXIS)))
-
-
-def _ext_rows(x, row0, t, top, bottom):
-    """Global rows [row0 - top, row0 + t + bottom) of x (N, H, ...), zeros
-    outside: what exchange_rows gives a shard (its test pins that)."""
-    pad = [(0, 0), (top, bottom)] + [(0, 0)] * (x.ndim - 2)
-    return np.pad(x, pad)[:, row0:row0 + t + top + bottom]
 
 
 @pytest.fixture(scope="module")
@@ -126,9 +109,9 @@ def _port_run(s, images, params, tmp_root):
         load_flax_params(model, params[name])
         for backend in BACKENDS:
             tasks.append(dict(
-                kind="forward", state_dict=model.state_dict(), im1=_t(im1),
-                im2=_t(im2), model=dict(corr_backend=backend,
-                                        fused_min_pixels=0, **cfg)))
+                kind="forward", state_dict=model.state_dict(),
+                im1=to_torch(im1), im2=to_torch(im2),
+                model=dict(corr_backend=backend, fused_min_pixels=0, **cfg)))
     res = run_ranks(s, dict(backend="gloo", device="cpu", threads=1,
                             tasks=tasks), str(tmp_root / f"s{s}"),
                     timeout=WORKER_TIMEOUT_S)
@@ -160,7 +143,7 @@ def test_exchange_halo_matches_jax(port_runs, s, halo):
                               in_specs=P(None, JAX_AXIS),
                               out_specs=P(None, JAX_AXIS)))
     with jax.set_mesh(mesh):
-        want = np.asarray(f(_jax_sharded(mesh, x)))[0, :, 0, 0]
+        want = np.asarray(f(jax_sharded(mesh, x)))[0, :, 0, 0]
     want = want.reshape(s, 16 // s + 2 * halo)
     runs = port_runs(s)
     for r in range(s):
@@ -181,8 +164,8 @@ def test_spatial_forward_matches_jax(port_runs, jax_runs, s, name, backend):
     assert len(got["flows"]) == len(want_flows)
     for g, w in zip(got["flows"], want_flows):
         assert g.shape == w.shape
-        assert _rel_err(g.numpy(), w) <= TOL
-    assert _rel_err(got["full"].numpy(), want_full) <= TOL
+        assert rel_err(g.numpy(), w) <= TOL
+    assert rel_err(got["full"].numpy(), want_full) <= TOL
     # Replicated: every rank returns the same flows.
     for r in range(1, s):
         other = runs[r][_task_index(name, backend)]
@@ -194,7 +177,7 @@ def test_spatial_forward_matches_jax(port_runs, jax_runs, s, name, backend):
 def test_spatial_forward_one_rank_matches_unsharded(images):
     """S = 1 needs no process group: the spatial path on one rank equals
     the unsharded port forward."""
-    im1, im2 = (_t(a) for a in images)
+    im1, im2 = (to_torch(a) for a in images)
     for cfg in CFGS.values():
         model = PWCNet(device="cpu", **cfg).eval()
         mesh = make_mesh(MeshConfig(spatial=1), device="cpu")
@@ -202,7 +185,7 @@ def test_spatial_forward_one_rank_matches_unsharded(images):
             flows, full = spatial_forward(model, mesh, im1, im2)
             want = model(im1, im2)
         for g, w in zip(flows, want):
-            assert _rel_err(g.numpy(), w.numpy()) <= TOL
+            assert rel_err(g.numpy(), w.numpy()) <= TOL
         assert full.shape == (1, *HW, 2)
 
 
@@ -218,21 +201,24 @@ def test_warp_ext_matches_jax_shard(row0, scale):
     n, t, w, c, halo, d, h = 2, 8, 12, 6, 3, 2, 32
     f2 = rng.standard_normal((n, h, w, c)).astype(np.float32)
     flow_g = (scale * rng.standard_normal((n, h, w, 2))).astype(np.float32)
-    f2e = _ext_rows(f2, row0, t, halo, halo)
-    flow_e = _ext_rows(flow_g, row0, t, d, d)
+    f2e = ext_rows(f2, row0, t, halo, halo)
+    flow_e = ext_rows(flow_g, row0, t, d, d)
     g_j, wm_j = _warp_ext_corners(jnp.asarray(f2e), jnp.asarray(flow_e),
                                   jnp.int32(row0), h, halo, d)
-    g_p, wm_p = warp_ext_corners_ref(_t(f2e), _t(flow_e), row0, h, halo, d)
+    g_p, wm_p = warp_ext_corners_ref(to_torch(f2e), to_torch(flow_e), row0,
+                                     h, halo, d)
     np.testing.assert_array_equal(g_p.numpy(), np.asarray(g_j))
     np.testing.assert_allclose(wm_p.numpy(), np.asarray(wm_j), atol=1e-7)
     want = np.asarray(_warp_ext(jnp.asarray(f2e), jnp.asarray(flow_e),
                                 jnp.int32(row0), h, halo, d))
-    got = warp_ext_ref(_t(f2e), _t(flow_e), row0, h, halo, d).numpy()
+    got = warp_ext_ref(to_torch(f2e), to_torch(flow_e), row0, h, halo,
+                       d).numpy()
     np.testing.assert_allclose(got, want, atol=1e-6)
     # The shard's own rows of the unsharded warp: equal while the samples
     # (|flow| <= 1.7 px at scale 0.5) stay within the halo, different where
     # they reach past it.
-    full = warp_bilinear(_t(f2), _t(flow_g)).numpy()[:, row0:row0 + t]
+    full = warp_bilinear(to_torch(f2),
+                         to_torch(flow_g)).numpy()[:, row0:row0 + t]
     own = got[:, d:d + t]
     if scale < 1:
         np.testing.assert_allclose(own, full, atol=1e-5)
@@ -249,16 +235,16 @@ def test_warp_ext_nan_flow_matches_jax_shard(row0):
     n, t, w, c, halo, d, h = 2, 8, 12, 6, 3, 2, 32
     f2 = rng.standard_normal((n, h, w, c)).astype(np.float32)
     flow_g = (2 * rng.standard_normal((n, h, w, 2))).astype(np.float32)
-    f2e = _ext_rows(f2, row0, t, halo, halo)
-    flow_e = _ext_rows(flow_g, row0, t, d, d)
+    f2e = ext_rows(f2, row0, t, halo, halo)
+    flow_e = ext_rows(flow_g, row0, t, d, d)
     flow_e[0, 3, 4, 0] = flow_e[1, 6, 2, 1] = flow_e[1, 0, 0] = np.nan
     args = (row0, h, halo, d)
     g_j, wm_j = _warp_ext_corners(jnp.asarray(f2e), jnp.asarray(flow_e),
                                   jnp.int32(row0), h, halo, d)
-    g_p, wm_p = warp_ext_corners_ref(_t(f2e), _t(flow_e), *args)
+    g_p, wm_p = warp_ext_corners_ref(to_torch(f2e), to_torch(flow_e), *args)
     want = np.asarray(_warp_ext(jnp.asarray(f2e), jnp.asarray(flow_e),
                                 jnp.int32(row0), h, halo, d))
-    got = warp_ext_ref(_t(f2e), _t(flow_e), *args).numpy()
+    got = warp_ext_ref(to_torch(f2e), to_torch(flow_e), *args).numpy()
     for a, b in ((g_p.numpy(), np.asarray(g_j)), (wm_p.numpy(),
                                                    np.asarray(wm_j)),
                  (got, want)):
@@ -277,14 +263,15 @@ def test_cost_volume_prepadded_matches_jax(dtype):
     jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     td = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     a, b = jnp.asarray(f1, jd), jnp.asarray(f2e, jd)
-    got = cost_volume_prepadded_ref(_t(f1).to(td), _t(f2e).to(td), d)
+    got = cost_volume_prepadded_ref(to_torch(f1).to(td),
+                                    to_torch(f2e).to(td), d)
     want_lax = cost_volume_prepadded_lax(a, b, d)
     want_pallas = cost_volume_pallas_prepadded(a, b, max_displacement=d,
                                                interpret=True)
     tol = 1e-6 if dtype == "float32" else 8e-3
     for want in (want_lax, want_pallas):
         want = np.asarray(want.astype(jnp.float32))
-        assert _rel_err(got.float().numpy(), want) <= tol
+        assert rel_err(got.float().numpy(), want) <= tol
 
 
 @pytest.mark.parametrize("backend", ("lax",) + BACKENDS)
@@ -308,38 +295,28 @@ def test_warp_corr_spatial_local_matches_jax_shards(backend, flow):
 
     with jax.set_mesh(mesh):
         want = np.asarray(jax.jit(f)(
-            _jax_sharded(mesh, f1), _jax_sharded(mesh, f2),
-            None if fl is None else _jax_sharded(mesh, fl)))
+            jax_sharded(mesh, f1), jax_sharded(mesh, f2),
+            None if fl is None else jax_sharded(mesh, fl)))
     t = h // s
     halo = corr_halo(t, halo_rows, d)
     for r in range(s):
         row0 = r * t
         got = warp_corr_spatial_local(
-            _t(f1[:, row0:row0 + t]), _t(_ext_rows(f2, row0, t, halo, halo)),
-            None if fl is None else _t(_ext_rows(fl, row0, t, d, d)),
+            to_torch(f1[:, row0:row0 + t]),
+            to_torch(ext_rows(f2, row0, t, halo, halo)),
+            None if fl is None else to_torch(ext_rows(fl, row0, t, d, d)),
             row0=row0, h_global=h, halo=halo, max_displacement=d,
             backend=backend, fused_min_pixels=0)
-        assert _rel_err(got.numpy(), want[:, row0:row0 + t]) <= 1e-5
-
-
-def _stem_params(seed=0):
-    """Stem weights (HWIO for JAX, OIHW for the port) with non-zero
-    biases."""
-    rng = np.random.default_rng(seed)
-    hwio = []
-    for ci, co in ((3, 16), (16, 16), (16, 32), (32, 32)):
-        hwio.append((rng.standard_normal((3, 3, ci, co)).astype(np.float32)
-                     * 0.3, 0.1 * rng.standard_normal(co).astype(np.float32)))
-    return hwio, [(_t(w.transpose(3, 2, 0, 1)), _t(b)) for w, b in hwio]
+        assert rel_err(got.numpy(), want[:, row0:row0 + t]) <= 1e-5
 
 
 def test_stem_receptive_field():
     """Level-2 row j of the stem depends on image rows 4j-6 .. 4j+12: 6
     rows above its own 4 and 9 below. A perturbed image row moves exactly
     the level-2 rows whose field holds it."""
-    _, params = _stem_params()
+    params = torch_stem_params(stem_params(np.random.default_rng(0), 0.3))
     rng = np.random.default_rng(1)
-    im = _t(rng.random((1, 64, 16, 3), np.float32))
+    im = to_torch(rng.random((1, 64, 16, 3), np.float32))
     base = stem_ref(im, params)
     for row in (24, 25, 26, 27):
         bumped = im.clone()
@@ -358,7 +335,8 @@ def test_stem_halo_rule_matches_jax_stem(s):
     """stem_block on each shard's exchanged rows (edge and interior shards)
     equals that shard's rows of the JAX stem on the whole image; 8 rows
     below in place of 12 would not."""
-    hwio, params = _stem_params(2)
+    hwio = stem_params(np.random.default_rng(2), 0.3)
+    params = torch_stem_params(hwio)
     rng = np.random.default_rng(4)
     im = rng.random((2, 64, 24, 3), np.float32)
     want = np.asarray(jax_stem_ref(jnp.asarray(im), [
@@ -369,15 +347,15 @@ def test_stem_halo_rule_matches_jax_stem(s):
         return stem_ref(x, params)
 
     for r in range(s):
-        ext = _t(_ext_rows(im, r * t, t, *STEM_ROWS))
+        ext = to_torch(ext_rows(im, r * t, t, *STEM_ROWS))
         got = stem_block(ext, stem, t, r, s).numpy()
         lo = r * t // 4
-        assert _rel_err(got, want[:, lo:lo + t // 4]) <= TOL
+        assert rel_err(got, want[:, lo:lo + t // 4]) <= TOL
         if r < s - 1:  # 8 rows of the shard below are too few
-            block, above = real_rows(_t(_ext_rows(im, r * t, t, 8, 8)), 8,
+            block, above = real_rows(to_torch(ext_rows(im, r * t, t, 8, 8)), 8,
                                      8, t, r, s)
             short = stem(block)[:, above // 4:above // 4 + t // 4].numpy()
-            assert _rel_err(short, want[:, lo:lo + t // 4]) > TOL
+            assert rel_err(short, want[:, lo:lo + t // 4]) > TOL
 
 
 @pytest.mark.parametrize("s", [1, 2, 4])
@@ -388,11 +366,11 @@ def test_upsample_halo_rule_matches_jax_resize(s):
     rng = np.random.default_rng(5)
     x = rng.standard_normal((2, 16, 6, 2)).astype(np.float32)
     want = np.asarray(jax_resize(jnp.asarray(x), (32, 12)))
-    np.testing.assert_allclose(resize_bilinear(_t(x), (32, 12)).numpy(),
+    np.testing.assert_allclose(resize_bilinear(to_torch(x), (32, 12)).numpy(),
                                want, atol=1e-6)
     t = 16 // s
     for r in range(s):
-        got = upsample2x_block(_t(_ext_rows(x, r * t, t, 1, 1)), t, r, s)
+        got = upsample2x_block(to_torch(ext_rows(x, r * t, t, 1, 1)), t, r, s)
         np.testing.assert_allclose(got.numpy(),
                                    want[:, 2 * r * t:2 * (r + 1) * t],
                                    atol=1e-6)

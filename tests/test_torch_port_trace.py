@@ -23,6 +23,8 @@ from pwcnet_tpu_torch.data.synthetic import SyntheticFlow, make_device_batcher
 from pwcnet_tpu_torch.parallel import launch
 from pwcnet_tpu_torch.train.evaluate import predict_flow
 
+import torch_port_util  # noqa: F401  (this process's share of the cores)
+
 
 @pytest.fixture(autouse=True)
 def clean_ring():

@@ -31,7 +31,6 @@ import pwcnet_tpu_torch.losses as tl
 from pwcnet_tpu_torch import PWCNet
 from pwcnet_tpu_torch.compat.flax_weights import _flatten, load_flax_params
 from pwcnet_tpu_torch.compat.flax_weights import torch_key
-from pwcnet_tpu_torch.config import PRESETS
 from pwcnet_tpu_torch.train.checkpoint import CheckpointManager
 from pwcnet_tpu_torch.train.loop import build_model, train
 from pwcnet_tpu_torch.train.schedule import (ScheduleConfig, lr_at,
@@ -39,14 +38,8 @@ from pwcnet_tpu_torch.train.schedule import (ScheduleConfig, lr_at,
 from pwcnet_tpu_torch.train.state import TrainState
 from pwcnet_tpu_torch.train.step import make_eval_step, make_train_step
 
-
-def _t(a):
-    return torch.from_numpy(np.asarray(a))
-
-
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+from torch_port_util import (one_thread, rel_err, rendered_batch, tiny_cfg,
+                             to_torch, torch_threads)
 
 
 def _flows(rng, n=2, hw=((4, 6), (8, 12), (16, 24))):
@@ -70,13 +63,13 @@ def test_downsample_gt_matches_jax(hw, with_valid):
     rng = np.random.default_rng(0)
     gt, valid = _gt(rng)
     v = valid if with_valid else None
-    got, got_v = tl.downsample_gt(_t(gt), hw, 20.0,
-                                  None if v is None else _t(v))
+    got, got_v = tl.downsample_gt(to_torch(gt), hw, 20.0,
+                                  None if v is None else to_torch(v))
     want, want_v = jl.downsample_gt(jnp.asarray(gt), hw, 20.0,
                                     None if v is None else jnp.asarray(v))
-    assert _rel_err(got.numpy(), want) <= 1e-5
+    assert rel_err(got.numpy(), want, floor=1e-30) <= 1e-5
     if with_valid:
-        assert _rel_err(got_v.numpy(), want_v) <= 1e-5
+        assert rel_err(got_v.numpy(), want_v, floor=1e-30) <= 1e-5
     else:
         assert got_v is None and want_v is None
 
@@ -92,8 +85,8 @@ def test_losses_match_jax(kind, with_valid):
                 "robust": (tl.robust_loss, jl.robust_loss)}[kind]
     # Three levels, four weights: the first three are used.
     w = (0.32, 0.08, 0.02, 0.01)
-    got = tfn([_t(f) for f in flows], _t(gt), None if v is None else _t(v),
-              weights=w)
+    got = tfn([to_torch(f) for f in flows], to_torch(gt),
+              None if v is None else to_torch(v), weights=w)
     want = jfn([jnp.asarray(f) for f in flows], jnp.asarray(gt),
                None if v is None else jnp.asarray(v), weights=w)
     assert got.dtype == torch.float32
@@ -113,11 +106,12 @@ def test_epe_and_fl_outliers_match_jax(with_valid):
     gt, valid = _gt(rng)
     pred = gt + rng.standard_normal(gt.shape).astype(np.float32) * 3
     v = valid if with_valid else None
-    got = tl.epe(_t(pred), _t(gt), None if v is None else _t(v)).item()
+    got = tl.epe(to_torch(pred), to_torch(gt),
+                 None if v is None else to_torch(v)).item()
     want = float(jl.epe(jnp.asarray(pred), jnp.asarray(gt),
                         None if v is None else jnp.asarray(v)))
     assert abs(got - want) <= 1e-6 * want
-    fl = tl.fl_outliers(_t(pred), _t(gt)).numpy()
+    fl = tl.fl_outliers(to_torch(pred), to_torch(gt)).numpy()
     np.testing.assert_array_equal(
         fl, np.asarray(jl.fl_outliers(jnp.asarray(pred), jnp.asarray(gt))))
     assert 0 < fl.mean() < 1
@@ -159,14 +153,14 @@ def test_optimizer_updates_match_optax(coupled_l2):
     tx = jax_optimizer(sched, weight_decay=0.1, coupled_l2=coupled_l2)
     wj, state = jnp.asarray(w0), None
     state = tx.init(wj)
-    p = torch.nn.Parameter(_t(w0.copy()))
+    p = torch.nn.Parameter(to_torch(w0.copy()))
     opt, sch = make_optimizer([p], ScheduleConfig(base_lr=1e-2,
                                                   milestones=(2,)),
                               weight_decay=0.1, coupled_l2=coupled_l2)
     for g in grads:
         upd, state = tx.update(jnp.asarray(g), state, wj)
         wj = optax.apply_updates(wj, upd)
-        p.grad = _t(g.copy())
+        p.grad = to_torch(g.copy())
         opt.step()
         sch.step()
     np.testing.assert_allclose(p.detach().numpy(), np.asarray(wj),
@@ -227,33 +221,15 @@ STEP_SCHEDULE = dict(base_lr=1e-4, milestones=(1,), gamma=0.5)
 STEP_SEEDS = (20, 21)
 
 
-@pytest.fixture
-def one_thread():
-    """Multi-threaded CPU kernels of torch add in a varying order; one
-    thread makes two runs of the same steps bitwise equal."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def steps():
-    n_threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
+    with torch_threads(1):
         return _steps()
-    finally:
-        torch.set_num_threads(n_threads)
 
 
 def _steps():
     hw = STEP_HW
-    samples = [jsyn._render(np, hw, jsyn._scale_pos(
-        jsyn._host_params(np.random.default_rng(s), "hard"), hw, np))
-        for s in STEP_SEEDS]
-    batch = {k: np.stack([s[k] for s in samples]).astype(np.float32)
-             for k in samples[0]}
+    batch = rendered_batch(hw, STEP_SEEDS)
     assert 0 < batch["valid"].mean() < 1  # the mask-weighted path runs
     jm = JaxPWCNet(corr_backend="lax")
     params = jax.jit(jm.init)(jax.random.key(0), batch["im1"], batch["im2"])
@@ -280,7 +256,7 @@ def _steps():
                                 ScheduleConfig(**STEP_SCHEDULE))
     tstep = make_train_step(model, opt, sched)
     state = TrainState.create(model, opt, sched, seed=1)
-    tbatch = {k: _t(v) for k, v in batch.items()}
+    tbatch = {k: to_torch(v) for k, v in batch.items()}
     tmetrics, tgrads = [], None
     for _ in range(2):
         state, m = tstep(state, tbatch)
@@ -308,7 +284,7 @@ def test_train_step_metrics_match_jax(steps, i):
 def test_train_step_gradients_match_jax(steps):
     jg, tg = steps["jgrads"], steps["tgrads"]
     assert jg.keys() == tg.keys()
-    errs = {k: _rel_err(tg[k].numpy(), jg[k]) for k in jg}
+    errs = {k: rel_err(tg[k].numpy(), jg[k], floor=1e-30) for k in jg}
     assert max(errs.values()) <= 1e-4, sorted(errs.items(),
                                               key=lambda t: -t[1])[:3]
 
@@ -345,22 +321,11 @@ def test_train_step_updates_match_jax(steps):
 # train(): checkpoints, resume, what is not ported
 # ---------------------------------------------------------------------------
 
-def _tiny_cfg(log_dir, **train_kw):
-    cfg = PRESETS["synthetic-proof"]
-    return dataclasses.replace(
-        cfg, model=dataclasses.replace(cfg.model, dtype="float32"),
-        data=dataclasses.replace(cfg.data, augment=dataclasses.replace(
-            cfg.data.augment, crop_hw=(64, 64))),
-        train=dataclasses.replace(cfg.train, global_batch=1,
-                                  log_dir=str(log_dir), summary_interval=1,
-                                  **train_kw))
-
-
 def test_resume_is_bitwise_equal_to_an_uninterrupted_run(tmp_path,
                                                          one_thread):
-    whole = train(_tiny_cfg(tmp_path / "a"), max_steps=4, device="cpu")
-    first = train(_tiny_cfg(tmp_path / "b"), max_steps=2, device="cpu")
-    rest = train(_tiny_cfg(tmp_path / "b"), max_steps=2, device="cpu")
+    whole = train(tiny_cfg(tmp_path / "a"), max_steps=4, device="cpu")
+    first = train(tiny_cfg(tmp_path / "b"), max_steps=2, device="cpu")
+    rest = train(tiny_cfg(tmp_path / "b"), max_steps=2, device="cpu")
     assert (first["step"], rest["step"], whole["step"]) == (2, 4, 4)
     assert rest["loss"] == whole["loss"]
     a = CheckpointManager(str(tmp_path / "a" / "ckpt")).load()
@@ -378,9 +343,9 @@ def test_resume_is_bitwise_equal_to_an_uninterrupted_run(tmp_path,
 
 
 def test_init_from_warm_starts_the_weights(tmp_path, one_thread):
-    train(_tiny_cfg(tmp_path / "a"), max_steps=2, device="cpu")
+    train(tiny_cfg(tmp_path / "a"), max_steps=2, device="cpu")
     ckpt = str(tmp_path / "a" / "ckpt")
-    cfg = _tiny_cfg(tmp_path / "c", init_from=ckpt)
+    cfg = tiny_cfg(tmp_path / "c", init_from=ckpt)
     got = train(cfg, max_steps=1, device="cpu")
     assert got["step"] == 1  # the weights, not the step, come from there
     model = build_model(cfg, "cpu")
@@ -429,7 +394,7 @@ def _changed(cfg, change):
 def test_train_raises_for_what_is_not_ported(tmp_path, change):
     change = dict(change)
     match = change.pop("match")
-    cfg = _changed(_tiny_cfg(tmp_path), change)
+    cfg = _changed(tiny_cfg(tmp_path), change)
     with pytest.raises(ValueError, match=match):
         train(cfg, max_steps=3, device="cpu")
 
@@ -443,7 +408,7 @@ def test_train_raises_for_what_is_not_ported(tmp_path, change):
 def test_train_refuses_a_mesh_it_cannot_form(tmp_path, change, error, match):
     """One process cannot be a data mesh of two; more processes need the
     coordinator; nor can it be two replicas along the model axis."""
-    cfg = _changed(_tiny_cfg(tmp_path), change)
+    cfg = _changed(tiny_cfg(tmp_path), change)
     with pytest.raises(error, match=match):
         train(cfg, max_steps=1, device="cpu")
 
@@ -471,7 +436,7 @@ def test_train_runs_what_was_not_ported(tmp_path, chairs_dir, case):
         "debug_nans": dict(train=dict(debug_nans=True)),
         "profile_dir": dict(train=dict(profile_dir=str(tmp_path / "prof"))),
     }[case]
-    cfg = _changed(_tiny_cfg(tmp_path / "run"), change)
+    cfg = _changed(tiny_cfg(tmp_path / "run"), change)
     final = train(cfg, max_steps=2, device="cpu")
     assert final["step"] == 2
     assert np.isfinite([final["loss"], final["train_epe"],
@@ -484,7 +449,7 @@ def test_train_runs_what_was_not_ported(tmp_path, chairs_dir, case):
 def test_train_runs_the_periodic_eval(tmp_path):
     """eval_interval inside the run: val metrics in the log and in the
     returned metrics of the last step, flow images of one val sample."""
-    cfg = _tiny_cfg(tmp_path, eval_interval=2, eval_limit=2)
+    cfg = tiny_cfg(tmp_path, eval_interval=2, eval_limit=2)
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, sample_hw=(64, 64), eval_batch=2))
     final = train(cfg, max_steps=2, device="cpu")
@@ -505,7 +470,7 @@ def test_train_without_device_raises_when_there_is_no_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: train() runs there")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        train(_tiny_cfg(tmp_path), max_steps=1)
+        train(tiny_cfg(tmp_path), max_steps=1)
 
 
 def test_train_step_refuses_augmentation(one_thread):
@@ -516,11 +481,11 @@ def test_train_step_refuses_augmentation(one_thread):
     (u negated)."""
     from pwcnet_tpu_torch.config import AugmentConfig
     rng = np.random.default_rng(9)
-    batch = {"im1": _t(rng.random((2, 32, 48, 3), np.float32)),
-             "im2": _t(rng.random((2, 32, 48, 3), np.float32)),
-             "flow": _t(rng.standard_normal((2, 32, 48, 2)).astype(
+    batch = {"im1": to_torch(rng.random((2, 32, 48, 3), np.float32)),
+             "im2": to_torch(rng.random((2, 32, 48, 3), np.float32)),
+             "flow": to_torch(rng.standard_normal((2, 32, 48, 2)).astype(
                  np.float32)),
-             "valid": _t((rng.random((2, 32, 48)) > 0.2).astype(
+             "valid": to_torch((rng.random((2, 32, 48)) > 0.2).astype(
                  np.float32))}
     flipped = {k: v.flip(2) for k, v in batch.items()}
     flipped["flow"] = flipped["flow"] * torch.tensor([-1.0, 1.0])
@@ -546,10 +511,11 @@ def test_train_step_refuses_augmentation(one_thread):
 def test_eval_step_counts():
     model = PWCNet(device="cpu")
     rng = np.random.default_rng(5)
-    im = _t(rng.random((2, 64, 64, 3), np.float32))
+    im = to_torch(rng.random((2, 64, 64, 3), np.float32))
     gt, valid = _gt(rng, hw=(64, 64))
     s, o, c, bins, per = make_eval_step(model)(
-        {"im1": im, "im2": im.flip(2), "flow": _t(gt), "valid": _t(valid)})
+        {"im1": im, "im2": im.flip(2), "flow": to_torch(gt),
+         "valid": to_torch(valid)})
     assert c.item() == valid.sum()
     assert per.shape == (2, 8) and bins.shape == (2, 3)
     assert torch.allclose(per[:, 0].sum(), s) and torch.allclose(

@@ -10,7 +10,6 @@ from pathlib import Path
 
 import jax
 import jax.numpy as jnp
-import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -21,6 +20,8 @@ from pwcnet_tpu_torch.compat.flax_weights import (_flatten, load_flax_params,
                                                   read_flax_npz, torch_key)
 from pwcnet_tpu_torch.data.synthetic import SyntheticFlow
 from pwcnet_tpu_torch.train.evaluate import evaluate_dataset
+
+from torch_port_util import jax_npz_params, nested_set, rel_err
 
 NPZ = (Path(__file__).resolve().parents[1] / "runs" / "synthetic-proof"
        / "params_step125000_bf16.npz")
@@ -73,13 +74,6 @@ def test_names_of_the_main_path_tree():
     assert n_blocks == {f"ConvBlock_{i}" for i in range(8)}
 
 
-def _nested_set(tree, path, value):
-    *heads, last = path.split("/")
-    for h in heads:
-        tree = tree.setdefault(h, {})
-    tree[last] = value
-
-
 def test_missing_key_raises():
     params = _param_tree()
     del params["context"]["Conv_0"]
@@ -89,7 +83,7 @@ def test_missing_key_raises():
 
 def test_unknown_key_raises():
     params = _param_tree()
-    _nested_set(params, "context/ConvBlock_9/Conv_0/kernel",
+    nested_set(params, "context/ConvBlock_9/Conv_0/kernel",
                 np.zeros((3, 3, 32, 32), np.float32))
     with pytest.raises(KeyError):
         load_flax_params(PWCNet(device="cpu"), params)
@@ -142,22 +136,6 @@ def test_init_follows_lecun_normal():
     assert torch.equal(again.context.flow.weight, model.context.flow.weight)
 
 
-def _rel_err(got, want):
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return np.abs(got - want).max() / np.abs(want).max()
-
-
-def _jax_npz_params():
-    """The trained npz as the JAX model's f32 params, read with
-    ``ml_dtypes``."""
-    tree = {}
-    with np.load(NPZ) as z:
-        for key in z.files:
-            _nested_set(tree, key.split("/", 1)[1],
-                        z[key].view(ml_dtypes.bfloat16).astype(np.float32))
-    return {"params": tree}
-
-
 def test_read_flax_npz_reads_the_uint16_checkpoint_as_bf16():
     tree = read_flax_npz(str(NPZ))
     flat = _flatten(tree)
@@ -201,7 +179,7 @@ def trained():
     im1, im2 = s["im1"][None], s["im2"][None]
     jm = JaxPWCNet(corr_backend="lax")
     want = jax.jit(lambda p, a, b: jm.apply(p, a, b, train=False))(
-        _jax_npz_params(), im1, im2)
+        jax_npz_params(NPZ), im1, im2)
     model = PWCNet(device="cpu")
     load_flax_params(model, read_flax_npz(str(NPZ)))
     with torch.no_grad():
@@ -215,7 +193,7 @@ def test_trained_checkpoint_matches_jax_per_level(trained, level):
     got, want = trained
     assert len(got) == len(want) == 5
     assert got[level].shape == want[level].shape
-    assert _rel_err(got[level], want[level]) <= TOL  # measured <= 6.2e-7
+    assert rel_err(got[level], want[level]) <= TOL  # measured <= 6.2e-7
     assert np.abs(want[level]).max() > 0.1  # trained flows carry signal
 
 
