@@ -31,11 +31,13 @@ sequence loss (24 of each of K1-K3 per step), and the command line's RAFT
 ``train``, ``predict`` and ``match``; published RAFT's kernels against
 their plain ops (``allpairs_kernels``: K8, the all-pairs pyramid, and K9,
 its lookup, bf16 and f32, ragged grids, points outside every level, the
-Functions' gradients) and its 32-iteration forward at 440x1024
-(``allpairs_forward``: 1 K8 and 32 K9 launches, the captured forward's
-time, f32 card vs CPU) and its command line (``allpairs_cli``: ``train``
-under the in-scan sequence loss, ``predict``). Then the repo's trained
-PWC-Net checkpoint (``pwc_trained``: bf16 launches, val EPE on
+Functions' gradients), its encoders' norms (``encoder_norm``: K10 against
+the plain version, bf16 and f32, ragged shapes, timed at the cell's shapes
+against its bandwidth bound) and its 32-iteration forward at 440x1024
+(``allpairs_forward``: 1 K8, 32 K9 and 39 K10 launches, the captured
+forward's time, f32 card vs CPU) and its command line (``allpairs_cli``:
+``train`` under the in-scan sequence loss, ``predict``). Then the repo's
+trained PWC-Net checkpoint (``pwc_trained``: bf16 launches, val EPE on
 synthetic-proof's 256 val pairs beside the TPU run's, f32 card vs CPU per
 level); the PWC-Net
 with GroupNorm (``norm_forward``: bf16 448x1024, K1 5 and K4 0 launches, f32
@@ -82,6 +84,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2681,7 +2684,8 @@ ALLPAIRS_SHAPES = [((1, 55, 128, 256), 4), ((2, 17, 19, 32), 4),
 ALLPAIRS_SEED = 20
 ALLPAIRS_HW = (440, 1024)
 ALLPAIRS_ITERS = 32
-ALLPAIRS_LAUNCHES = {"corr_pyramid": 1, "corr_lookup": ALLPAIRS_ITERS}
+ALLPAIRS_LAUNCHES = {"corr_pyramid": 1, "corr_lookup": ALLPAIRS_ITERS,
+                     "stats": 13, "apply": 26}  # K10: 30 norms
 # K8, K9 against their plain ops: f32 the sum order; bf16 one rounding of
 # an f32 value, at most half a bf16 step (2**-9) of it. K9 in f32: the
 # plain op normalizes a point by size - 1 and grid_sample unnormalizes it,
@@ -2782,6 +2786,120 @@ def allpairs_kernels(timer, dev) -> dict:
     return timed
 
 
+# Published RAFT's encoder norms (K10): the cell's three norm shapes of
+# fnet (both frames of a 440x1024 pair; cnet's are the same at N = 1) and
+# ragged ones (C = 8 and 200, odd sides, one column).
+ENCODER_NORM_CELL = [(2, 64, 220, 512), (2, 96, 110, 256), (2, 128, 55, 128)]
+ENCODER_NORM_RAGGED = [(2, 8, 7, 9), (1, 200, 5, 3), (3, 24, 13, 1)]
+ENCODER_NORM_SEED = 23
+# K10's calls a forward of an encoder at each of its three shapes, by join:
+# the stem and each block's first norm unjoined, a stride-1 block's end
+# joined to its input, a stride-2 block's to its normalized down path.
+ENCODER_NORM_CALLS = ({None: 3, "identity": 2, "down": 0},
+                      {None: 2, "identity": 1, "down": 1},
+                      {None: 2, "identity": 1, "down": 1})
+
+
+def encoder_norm_cost(shape, dtype, join) -> float:
+    """K10's bytes for one call: the input read once, the block's second
+    input where it joins, the output written once (the statistics launch
+    reads instance norm's inputs again; the bound does not count that)."""
+    return math.prod(shape) * dtype.itemsize * (3 if join else 2)
+
+
+def encoder_norm_case(kind, join, shape, dtype, gen, dev):
+    """(x, norm, skip, skip_norm) of K10: channels-last values with
+    per-channel offsets and scales, batch norm's terms off the identity."""
+    c = shape[1]
+
+    def conv_like():
+        scale = 0.5 + 1.5 * torch.rand((1, c, 1, 1), generator=gen,
+                                       device=dev)
+        off = 2 * torch.randn((1, c, 1, 1), generator=gen, device=dev)
+        x = torch.randn(shape, generator=gen, device=dev) * scale + off
+        return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    def norm():
+        if kind == "instance":
+            return "instance"
+        mul = 1 + 0.3 * torch.randn(c, generator=gen, device=dev)
+        return mul, 0.1 * torch.randn(c, generator=gen, device=dev)
+    x, skip, skip_norm = conv_like(), None, None
+    if join == "identity":
+        skip = torch.relu(conv_like())
+    elif join == "down":
+        skip, skip_norm = conv_like(), norm()
+    return x, norm(), skip, skip_norm
+
+
+def encoder_norm_phase(timer, dev) -> dict:
+    """encoder_norm: K10 against the plain version on the card, instance
+    and batch norm, unjoined and joined (identity, down path), bf16 and f32,
+    at the cell's shapes and ragged ones (batch norm bit-equal; instance
+    norm in bf16 within one step of each rounding, in f32 within 1e-5 of
+    max|ref|); at the cell's shapes in bf16 each call's time, bound and
+    plain time, and their sums over one forward of both encoders."""
+    from pwcnet_tpu_torch.ops.encoder_norm import (bf16_tolerance,
+                                                   encoder_norm_ref)
+    from pwcnet_tpu_torch.ops.kernels import encoder_norm_kernel as enk
+    gen = torch.Generator(device=dev).manual_seed(ENCODER_NORM_SEED)
+    sums = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0}
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in ENCODER_NORM_CELL + ENCODER_NORM_RAGGED:
+            for kind in ("instance", "batch"):
+                for join in (None, "identity", "down"):
+                    args = encoder_norm_case(kind, join, shape, dtype, gen,
+                                             dev)
+                    with torch.inference_mode():
+                        got = enk.encoder_norm_cuda(*args)
+                        again = enk.encoder_norm_cuda(*args)
+                        want = encoder_norm_ref(*args)
+                    torch.cuda.synchronize()
+                    if kind == "batch":
+                        err, ok = float((got.float() - want.float()).abs()
+                                        .max()), torch.equal(got, want)
+                    elif dtype == torch.float32:
+                        err = rel_err(got, want)[1]
+                        ok = err <= 1e-5
+                    else:
+                        err = float(((got.float() - want.float()).abs()
+                                     / bf16_tolerance(*args)).max())
+                        ok = err <= 1.0
+                    key = (str(dtype), kind, join)
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    row = {"phase": "encoder_norm", "shape": shape,
+                           "dtype": str(dtype), "kind": kind, "join": join,
+                           "err": err, "ok": ok,
+                           "same_bits_twice": torch.equal(got, again)}
+                    if dtype == torch.bfloat16 and shape in ENCODER_NORM_CELL:
+                        if kind == "batch":  # cnet: frame 1 alone
+                            args = (args[0][:1], args[1],
+                                    None if args[2] is None else args[2][:1],
+                                    args[3])
+                        calls = ENCODER_NORM_CALLS[ENCODER_NORM_CELL.index(
+                            shape)][join]
+                        with torch.inference_mode():
+                            ms = timer(lambda: enk.encoder_norm_cuda(*args))
+                            plain = timer(lambda: encoder_norm_ref(*args),
+                                          inner=2)
+                        bound = encoder_norm_cost(args[0].shape, dtype,
+                                                  join) / HBM_BYTES_PER_S * 1e3
+                        row.update(ms=ms, bound_ms=bound, plain_ms=plain,
+                                   roofline=bound / ms, calls_a_forward=calls)
+                        sums["ms"] += calls * ms
+                        sums["bound_ms"] += calls * bound
+                        sums["plain_ms"] += calls * plain
+                    emit(row)
+                    if not (ok and row["same_bits_twice"]):
+                        raise AssertionError(f"K10 disagrees with its plain "
+                                             f"version: {row}")
+    total = dict(sums, roofline=sums["bound_ms"] / sums["ms"],
+                 worst={" ".join(map(str, k)): v for k, v in worst.items()})
+    emit({"phase": "encoder_norm_forward", **total})
+    return total
+
+
 def allpairs_cli(out_dir: str) -> None:
     """allpairs_cli: the command line with published RAFT, in subprocesses
     on the card: train on synthetic-proof's device batches (bf16, 3 steps of
@@ -2826,13 +2944,15 @@ def allpairs_model(dtype, device, iters=ALLPAIRS_ITERS):
 
 def allpairs_forward(dev, timer, smi) -> dict:
     """allpairs_forward: published RAFT (bf16, 32 iterations) on a 440x1024
-    pair: one eager forward's launches (1 K8, 32 K9), the flow's shape and
+    pair: one eager forward's launches (1 K8, 32 K9; K10 13 statistics and
+    26 applies), the flow's shape and
     finiteness, the captured forward's device time, predict_flow's wall time
     at 436x1024, the profiler's largest kernels; then the f32 card forward
     (K8, K9) against the CPU's plain ops at 192x256, 4 iterations."""
     from pwcnet_tpu_torch import predict_flow
     from pwcnet_tpu_torch.ops.kernels import corr_lookup_kernel as lk
     from pwcnet_tpu_torch.ops.kernels import corr_pyramid_kernel as pk
+    from pwcnet_tpu_torch.ops.kernels import encoder_norm_kernel as enk
     from pwcnet_tpu_torch.train.evaluate import infer_flow
     model = allpairs_model(torch.bfloat16, dev)
     gen = torch.Generator(device=dev).manual_seed(ALLPAIRS_SEED)
@@ -2841,11 +2961,11 @@ def allpairs_forward(dev, timer, smi) -> dict:
     with torch.inference_mode():
         model(im1, im2, train=False)  # warm-up
         torch.cuda.synchronize()
-        reset_launches(pk, lk)
+        reset_launches(pk, lk, enk)
         flows = model(im1, im2, train=False)
         torch.cuda.synchronize()
-        launches = {k: v for mod in (pk, lk) for k, v in mod.LAUNCHES.items()
-                    if v}
+        launches = {k: v for mod in (pk, lk, enk)
+                    for k, v in mod.LAUNCHES.items() if v}
         finite = bool(torch.isfinite(flows[-1]).all())
         eager_dev = timer(lambda: model(im1, im2, train=False), reps=5,
                           inner=1)
@@ -4649,6 +4769,7 @@ def main() -> int:
         # -- 5d'. Published RAFT: K8 and K9 against their plain ops, the
         # 32-iteration forward at 440x1024, the command line ----------------
         allpairs_kernels(timer, dev)
+        encoder_norm_phase(timer, dev)
         allpairs_forward(dev, timer, smi)
         allpairs_cli(out_dir)
 

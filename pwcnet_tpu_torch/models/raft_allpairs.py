@@ -13,6 +13,8 @@ runs only the local-correlation RAFT (``models/raft.py``).
 - ``cnet``: the same encoder with batch norm in its eval form (running
   statistics as buffers) on frame 1, split into hidden (tanh) and context
   (ReLU).
+- Each norm of both encoders, with the ReLU and the block's join after it,
+  is one ``ops/encoder_norm.py:encoder_norm`` (K10 on the GPU).
 - The pyramid: the all-pairs correlation of the 1/8 features over
   sqrt(C) and its ``avg_pool2d`` levels (``ops/corr_pyramid.py``; K8 on
   the GPU), built once; each iteration looks up a window of radius r in
@@ -49,10 +51,11 @@ from pwcnet_tpu_torch.models.pwcnet import _nchw, _nhwc, _resolve_device
 from pwcnet_tpu_torch.models.raft import RAFT, SepConvGRU, convex_upsample
 from pwcnet_tpu_torch.ops.corr_lookup import corr_lookup, corr_lookup_ref
 from pwcnet_tpu_torch.ops.corr_pyramid import corr_pyramid, corr_pyramid_ref
+from pwcnet_tpu_torch.ops.encoder_norm import (INSTANCE, NORM_EPS, Norm,
+                                               encoder_norm)
 from pwcnet_tpu_torch.ops.kernels.corr_pyramid_kernel import check_levels
 
 DIV = 8
-NORM_EPS = 1e-5  # torch's InstanceNorm2d and BatchNorm2d default
 
 
 class PaddedConv(Conv):
@@ -66,13 +69,11 @@ class PaddedConv(Conv):
 
 
 class InstanceNorm(nn.Module):
-    """``nn.InstanceNorm2d(affine=False)``, in f32 (elementwise, so that
-    the channels-last layout stays)."""
+    """``nn.InstanceNorm2d(affine=False)``: its statistics are the input's,
+    so it has no terms of its own (``ops/encoder_norm.py`` applies it)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        var, mean = torch.var_mean(xf, (2, 3), correction=0, keepdim=True)
-        return ((xf - mean) * torch.rsqrt(var + NORM_EPS)).to(x.dtype)
+    def terms(self) -> Norm:
+        return INSTANCE
 
 
 class FrozenBatchNorm(nn.Module):
@@ -87,11 +88,10 @@ class FrozenBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def terms(self) -> Norm:
+        """``(mul, add)``: the norm is ``x * mul + add`` in f32."""
         mul = torch.rsqrt(self.running_var + NORM_EPS) * self.weight
-        add = self.bias - self.running_mean * mul
-        return (x.float() * mul[:, None, None] + add[:, None, None]
-                ).to(x.dtype)
+        return mul, self.bias - self.running_mean * mul
 
 
 def _norm(kind: str, features: int) -> nn.Module:
@@ -100,7 +100,8 @@ def _norm(kind: str, features: int) -> nn.Module:
 
 class ResidualBlock(nn.Module):
     """The published block: ``relu(x' + relu(norm2(conv2(relu(norm1(
-    conv1(x)))))))``, ``x' = norm3(down(x))`` where the stride is 2."""
+    conv1(x)))))))``, ``x' = norm3(down(x))`` where the stride is 2. Each
+    norm with what follows it is one ``encoder_norm`` (K10 on the GPU)."""
 
     def __init__(self, cin: int, planes: int, norm: str, stride: int = 1):
         super().__init__()
@@ -114,11 +115,11 @@ class ResidualBlock(nn.Module):
             self.norm3 = _norm(norm, planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.norm1(self.conv1(x)))
-        y = F.relu(self.norm2(self.conv2(y)))
-        if self.down is not None:
-            x = self.norm3(self.down(x))
-        return F.relu(x + y)
+        y = encoder_norm(self.conv1(x), self.norm1.terms())
+        if self.down is None:
+            return encoder_norm(self.conv2(y), self.norm2.terms(), x)
+        return encoder_norm(self.conv2(y), self.norm2.terms(), self.down(x),
+                            self.norm3.terms())
 
 
 class BasicEncoder(nn.Module):
@@ -138,7 +139,7 @@ class BasicEncoder(nn.Module):
         self.conv2 = Conv(128, dim, (1, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.norm1(self.conv1(x)))
+        x = encoder_norm(self.conv1(x), self.norm1.terms())
         for block in self.blocks:
             x = block(x)
         return self.conv2(x)
@@ -168,8 +169,10 @@ class RAFTAllPairs(nn.Module):
 
     ``corr_backend``: ``"pallas"`` (default) runs K8 and K9 on CUDA tensors
     (their plain versions on CPU tensors; backward through autograd of the
-    plain versions), ``"lax"`` the plain versions on any device.
-    ``device=None`` means the GPU, and raises when there is none. Conv
+    plain versions), ``"lax"`` their plain versions on any device. It
+    chooses only the correlation's kernels: the encoders' norms take K10 on
+    any CUDA tensor whatever the backend, so a ``"lax"`` model on the card
+    is not all plain PyTorch. ``device=None`` means the GPU, and raises when there is none. Conv
     weights are drawn from ``generator`` (seed 0 when None) with the flax
     defaults' law, as the port's other models; norms start at the identity.
     """

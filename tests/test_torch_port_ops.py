@@ -406,14 +406,16 @@ def test_resize_half_pixel_refuses_downsampling():
 def test_build_knows_both_kernel_sources():
     from pwcnet_tpu_torch.ops.kernels import (conv_folded_kernel,
                                               corr_lookup_kernel,
-                                              corr_pyramid_kernel)
+                                              corr_pyramid_kernel,
+                                              encoder_norm_kernel)
     assert build.kernel_names() == ["conv_folded", "corr_lookup",
                                     "corr_pyramid", "cost_volume",
-                                    "cost_volume_bwd", "stem", "warp_corr"]
+                                    "cost_volume_bwd", "encoder_norm",
+                                    "stem", "warp_corr"]
     src = {cost_volume_kernel.SOURCE, cost_volume_kernel.BWD_SOURCE,
            stem_kernel.SOURCE, warp_corr_kernel.SOURCE,
            conv_folded_kernel.SOURCE, corr_pyramid_kernel.SOURCE,
-           corr_lookup_kernel.SOURCE}
+           corr_lookup_kernel.SOURCE, encoder_norm_kernel.SOURCE}
     assert src == {f"pwcnet_tpu_torch/csrc/{n}.cu"
                    for n in build.kernel_names()}
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
