@@ -36,7 +36,14 @@ the plain version, bf16 and f32, ragged shapes, timed at the cell's shapes
 against its bandwidth bound) and its 32-iteration forward at 440x1024
 (``allpairs_forward``: 1 K8, 32 K9 and 39 K10 launches, the captured
 forward's time, f32 card vs CPU) and its command line (``allpairs_cli``:
-``train`` under the in-scan sequence loss, ``predict``). Then the repo's
+``train`` under the in-scan sequence loss, ``predict``); GMA's global
+attention (``gma_kernels``: K11's map and aggregation against the plain
+versions, bf16 and f32, at the cell's 135x240 grid, at 136x240 and a
+ragged one, timed against its bound beside cuBLAS streaming a stored map
+and flash attention recomputing it), its 32-iteration forward at
+1080x1920 (``gma_forward``: K8, K9, K10 as published RAFT's, 1 K11 map
+and 32 aggregations, the captured forward's kernels by kind, f32 card vs
+CPU) and its command line (``gma_cli``). Then the repo's
 trained PWC-Net checkpoint (``pwc_trained``: bf16 launches, val EPE on
 synthetic-proof's 256 val pairs beside the TPU run's, f32 card vs CPU per
 level); the PWC-Net
@@ -3007,6 +3014,304 @@ def allpairs_forward(dev, timer, smi) -> dict:
     return {"launches": launches, "captured_device_ms": captured_dev}
 
 
+# GMA (gma): K11 at the cell's 1/8 grid of a 1080x1920 pair (135x240, P =
+# 32400), at 136x240 (1088 rows) and at a ragged grid (17x30: P = 510, rows
+# not a whole tile); q and k as views of one (P, 256) buffer, as the model
+# splits them, scaled so that the scores spread by about 2.
+GMA_GRIDS = [(135, 240), (136, 240), (17, 30)]
+GMA_SEED = 24
+GMA_HW = (1080, 1920)
+GMA_ITERS = 32
+GMA_LAUNCHES = dict(ALLPAIRS_LAUNCHES, map=1, aggregate=GMA_ITERS)
+# K11 against the plain versions: f32, the sums' order and exp2 for exp
+# (1e-5 of the largest value; of a map row's max for the map); bf16, the
+# rules of ``ops.global_attention`` (each value within one bf16 step, a
+# map's rows summing to 1 within 2**-9, K11's map through the plain
+# aggregation within two steps of the largest value), with the aggregation
+# run on the motion features and on 0, so that its allowance is relative
+# to ``gamma * A v`` alone.
+GMA_F32_TOL = 1e-5
+
+
+def gma_qkvm(p: int, dtype, dev, gen):
+    qk = (torch.randn((1, p, 256), generator=gen, device=dev) * 1.2).to(dtype)
+    v, m = (torch.randn((1, p, 128), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    return qk[..., :128], qk[..., 128:], v, m
+
+
+def map_row_err(got: torch.Tensor, want: torch.Tensor,
+                rows: int = 2048) -> float:
+    """The largest gap of a map's value over its row's max, by row blocks
+    (a double copy of a 32400-pixel map would take 8.4 GB)."""
+    worst = 0.0
+    for i in range(0, want.shape[1], rows):
+        a, b = got[:, i:i + rows].float(), want[:, i:i + rows].float()
+        worst = max(worst, float(((a - b).abs().amax(-1)
+                                  / b.abs().amax(-1)).max()))
+    return worst
+
+
+def k11_errs(attn, attn_ref, v, m, gamma) -> dict:
+    """K11's map and aggregations (on ``m`` and on 0) against the plain
+    versions' by the rules of their dtype: {check: (reading, limit)}."""
+    from pwcnet_tpu_torch.ops import global_attention as ga
+    from pwcnet_tpu_torch.ops.kernels import global_attention_kernel as gk
+    zero = torch.zeros_like(m)
+    f32 = m.dtype == torch.float32
+    errs = {}
+    for name, mm in (("m", m), ("0", zero)):
+        got = gk.aggregate_cuda(attn_ref, v, mm, gamma)
+        want = ga.aggregate_ref(attn_ref, v, mm, gamma)
+        floor = ga.AGGREGATE_FLOOR * float(want.float().abs().max())
+        errs[f"aggregate_{name}"] = (
+            (rel_err(got, want)[1], GMA_F32_TOL) if f32 else
+            (ga.bf16_steps_off(got, want, floor), ga.BF16_STEPS))
+        del got, want
+    if f32:
+        errs["map"] = (map_row_err(attn, attn_ref), GMA_F32_TOL)
+        return errs
+    errs["map"] = (ga.bf16_steps_off(attn, attn_ref), ga.BF16_STEPS)
+    errs["row_sum"] = (ga.row_sum_err(attn), ga.ROW_SUM_TOL)
+    via = [ga.aggregate_ref(a, v, zero.float(), gamma)
+           for a in (attn, attn_ref)]
+    errs["via_map"] = (rel_err(*via)[1], ga.VIA_MAP_TOL)
+    return errs
+
+
+def gma_kernels(timer, dev) -> dict:
+    """gma_kernels: K11 (GMA's attention map and aggregation) against the
+    plain versions on the card, bf16 and f32, at GMA_GRIDS, and the
+    Functions' gradients against the plain versions' autograd. At the
+    cell's grid in bf16: a map's and an aggregation's time, the plain
+    versions', a forward's K11 time (1 map, 32 aggregations) against its
+    bound (``costs_gma.attention_cost``), and the two designs' yardsticks,
+    library calls the port never makes: cuBLAS streaming a stored bf16 map
+    (``torch.matmul``) and flash attention recomputing it each time
+    (``scaled_dot_product_attention``), each beside its bound."""
+    import torch.nn.functional as F
+
+    from flowbench import costs, costs_gma
+    from pwcnet_tpu_torch.ops.global_attention import (
+        aggregate, aggregate_ref, attention_map, attention_map_ref)
+    from pwcnet_tpu_torch.ops.kernels import global_attention_kernel as gk
+    gen = torch.Generator(device=dev).manual_seed(GMA_SEED)
+    gamma = torch.tensor([1.25], device=dev)
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, w in GMA_GRIDS:
+            p = h * w
+            q, k, v, m = gma_qkvm(p, dtype, dev, gen)
+            with torch.inference_mode():
+                attn = gk.attention_map_cuda(q, k)
+                attn_ref = attention_map_ref(q, k)
+                errs = k11_errs(attn, attn_ref, v, m, gamma)
+            torch.cuda.synchronize()
+            del attn_ref
+            row = {"phase": "gma_kernels", "grid": [h, w], "dtype": str(dtype),
+                   "checks": errs}
+            if dtype == torch.bfloat16 and (h, w) == GMA_GRIDS[0]:
+                flops = 2.0 * p * p * 128
+                with torch.inference_mode():
+                    row.update(
+                        map_ms=timer(lambda: gk.attention_map_cuda(q, k),
+                                     reps=5, inner=2),
+                        aggregate_ms=timer(lambda: gk.aggregate_cuda(
+                            attn, v, m, gamma), reps=10, inner=4),
+                        map_plain_ms=timer(lambda: attention_map_ref(q, k),
+                                           reps=3, inner=1),
+                        aggregate_plain_ms=timer(lambda: aggregate_ref(
+                            attn, v, m, gamma), reps=3, inner=1),
+                        stream_library_ms=timer(lambda: torch.matmul(attn, v),
+                                                reps=10, inner=4),
+                        stream_bound_ms=costs.bound_ms(p * p * 2, flops),
+                        recompute_bound_ms=costs.bound_ms(0, 2 * flops))
+                    try:
+                        from torch.nn.attention import SDPBackend, sdpa_kernel
+                        q4, k4, v4 = (t.reshape(1, 1, p, 128)
+                                      for t in (q, k, v))
+                        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                            row["recompute_library_ms"] = timer(
+                                lambda: F.scaled_dot_product_attention(
+                                    q4, k4, v4), reps=10, inner=4)
+                    except (RuntimeError, ImportError) as err:
+                        row["recompute_library_error"] = str(err)[:300]
+                bound = costs.bound_ms(*costs_gma.attention_cost(
+                    (1, h, w, 128, GMA_ITERS)))
+                fwd = row["map_ms"] + GMA_ITERS * row["aggregate_ms"]
+                row.update(forward_ms=fwd, forward_bound_ms=bound,
+                           forward_roofline=bound / fwd,
+                           forward_plain_ms=row["map_plain_ms"] + GMA_ITERS
+                           * row["aggregate_plain_ms"])
+                timed = row
+            emit(row)
+            del attn
+            if not all(got <= lim for got, lim in errs.values()):
+                raise AssertionError(f"K11 disagrees with its plain versions "
+                                     f"at {(h, w)} {dtype}: {errs}")
+    # The Functions' gradients (f32, a small grid).
+    q, k, v, m = (t.detach().clone().requires_grad_()
+                  for t in gma_qkvm(63, torch.float32, dev, gen))
+    gam = gamma.clone().requires_grad_()
+    proj = torch.randn((1, 63, 128), generator=gen, device=dev)
+    args = (q, k, v, m, gam)
+    got = torch.autograd.grad(
+        (aggregate(attention_map(q, k), v, m, gam) * proj).sum(), args)
+    want = torch.autograd.grad(
+        (aggregate_ref(attention_map_ref(q, k), v, m, gam) * proj).sum(),
+        args)
+    grad_errs = [rel_err(a, b)[1] for a, b in zip(got, want)]
+    emit({"phase": "gma_grads", "rel_err": grad_errs, "tol": GMA_F32_TOL})
+    if not max(grad_errs) <= GMA_F32_TOL:
+        raise AssertionError(f"K11 Functions' gradients: {grad_errs}")
+    return timed
+
+
+def gma_model(dtype, device, iters=GMA_ITERS):
+    """GMA with the port's seeded init (seed 0) and gamma 1 (the released
+    init, 0, would leave the aggregation out of the flow)."""
+    from pwcnet_tpu_torch.models import GMA
+    model = GMA(num_iters=iters, dtype=dtype, device=device)
+    with torch.no_grad():
+        model.aggregator.gamma.fill_(1.0)
+    return model.eval()
+
+
+KERNEL_KINDS = (("K11", "global_attention"), ("K8", "corr_pyramid"),
+                ("K9", "corr_lookup"), ("K10", "encoder_norm"),
+                ("cat", "CatArray"), ("elementwise", "elementwise"),
+                ("reduce", "reduce_kernel"),
+                ("convs", ("conv", "xmma", "gemm", "cudnn", "sm90", "cutlass",
+                           "nchwToNhwc", "nhwcToNchw")))
+
+
+def kernels_by_kind(fn, n: int = 3) -> dict:
+    """Device ms and launches per call of ``fn`` by kind of kernel (the
+    profiler's names: the port's kernels, cat, elementwise, reduce, cuDNN
+    and cuBLAS; the rest as "other")."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for ev in prof.key_averages():
+        if (ev.device_type != DeviceType.CUDA or ev.self_device_time_total <= 0
+                or getattr(ev, "is_user_annotation", False)):
+            continue
+        kind = next((k for k, pats in KERNEL_KINDS
+                     if any(pt in ev.key for pt in ((pats,) if isinstance(
+                         pats, str) else pats))), "other")
+        ms, c = out.get(kind, (0.0, 0))
+        out[kind] = (ms + ev.self_device_time_total / 1e3 / n,
+                     c + ev.count // n)
+    return {k: {"ms": ms, "launches": c} for k, (ms, c) in out.items()}
+
+
+def gma_forward(dev, timer, smi) -> dict:
+    """gma_forward: GMA (bf16, 32 iterations) on a 1080x1920 pair: one
+    eager forward's launches (1 K8, 32 K9, K10 13 statistics and 26
+    applies, K11 1 map and 32 aggregations), the flow's shape and
+    finiteness, the captured forward's device time and its kernels by
+    kind, predict_flow's wall time, the peak memory; then the f32 card
+    forward (K8, K9, K10, K11) against the CPU's plain ops at 192x256, 4
+    iterations."""
+    from pwcnet_tpu_torch import predict_flow
+    from pwcnet_tpu_torch.ops.kernels import corr_lookup_kernel as lk
+    from pwcnet_tpu_torch.ops.kernels import corr_pyramid_kernel as pk
+    from pwcnet_tpu_torch.ops.kernels import encoder_norm_kernel as enk
+    from pwcnet_tpu_torch.ops.kernels import global_attention_kernel as gk
+    from pwcnet_tpu_torch.train.evaluate import infer_flow
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = gma_model(torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(GMA_SEED)
+    im1 = torch.rand((1, *GMA_HW, 3), generator=gen, device=dev)
+    im2 = torch.roll(im1, (2, 3), (1, 2))
+    with torch.inference_mode():
+        model(im1, im2, train=False)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches(pk, lk, enk, gk)
+        flows = model(im1, im2, train=False)
+        torch.cuda.synchronize()
+        launches = {k: v for mod in (pk, lk, enk, gk)
+                    for k, v in mod.LAUNCHES.items() if v}
+        finite = bool(torch.isfinite(flows[-1]).all())
+        eager_dev = timer(lambda: model(im1, im2, train=False), reps=3,
+                          inner=1)
+        infer_flow(model, im1, im2)  # capture
+        captured_dev = timer(lambda: infer_flow(model, im1, im2), reps=5,
+                             inner=2)
+        kinds = kernels_by_kind(lambda: infer_flow(model, im1, im2))
+    a = im1[0].cpu().numpy()
+    b = im2[0].cpu().numpy()
+    predict_wall = wall_ms(lambda: predict_flow(model, a, b), reps=10)
+    emit({"phase": "gma_forward", "dtype": "bfloat16", "hw": list(GMA_HW),
+          "iters": GMA_ITERS, "launches": launches, "finite": finite,
+          "flow_shape": list(flows[-1].shape),
+          "eager_device_ms": eager_dev, "captured_device_ms": captured_dev,
+          "captured_kernels_by_kind": kinds,
+          "predict_flow_ms_wall": predict_wall,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "nvidia_smi": smi})
+    if not finite or tuple(flows[-1].shape) != (1, *GMA_HW, 2):
+        raise AssertionError(f"bad GMA flow: finite={finite} "
+                             f"{tuple(flows[-1].shape)}")
+    if launches != GMA_LAUNCHES:
+        raise AssertionError(f"expected {GMA_LAUNCHES} per forward, got "
+                             f"{launches}")
+    del model, flows
+    c1, c2 = (torch.rand((1, 192, 256, 3), generator=gen, device=dev)
+              for _ in range(2))
+    with torch.inference_mode():
+        f_card = gma_model(torch.float32, dev, 4)(c1, c2, train=False)
+        f_cpu = gma_model(torch.float32, "cpu", 4)(c1.cpu(), c2.cpu(),
+                                                   train=False)
+    err = rel_err(f_card[-1].cpu(), f_cpu[-1])[1]
+    emit({"phase": "gma_forward_f32_card_vs_cpu", "hw": [192, 256],
+          "iters": 4, "rel_err": err, "tol": FWD_TOL})
+    if not err <= FWD_TOL:
+        raise AssertionError(f"GMA card and CPU forwards disagree: {err}")
+    return {"launches": launches, "captured_device_ms": captured_dev}
+
+
+def gma_cli(out_dir: str) -> None:
+    """gma_cli: the command line with GMA, in subprocesses on the card:
+    train on synthetic-proof's device batches (bf16, 3 steps of 2 pairs
+    cropped to 256x320, the in-scan sequence loss: the step captured, the
+    backward through K8's, K9's and K11's Functions), then predict with
+    model.family=gma on the repo's parity pair."""
+    import shutil
+    from pwcnet_tpu_torch.io import read_flo
+    fixtures = os.path.join(ROOT, "tests", "fixtures", "parity")
+    log_dir = os.path.join(RUN_DIR, "cli_gma")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    final, train_s = run_cli("train", "--preset", "synthetic-proof",
+                             "--max-steps", "3", "model.family=gma",
+                             "train.loss=sequence_inscan",
+                             "train.global_batch=2",
+                             "data.augment.crop_hw=(256,320)",
+                             "train.summary_interval=1",
+                             f"train.log_dir={log_dir}")
+    recs = _metrics(log_dir)
+    shutil.rmtree(log_dir)
+    train_ok = final["step"] == 3 and _finite_steps(recs)
+    flo = os.path.join(out_dir, "cli_gma_predict.flo")
+    pred, pred_s = run_cli("predict", "--im1",
+                           os.path.join(fixtures, "im1.png"), "--im2",
+                           os.path.join(fixtures, "im2.png"), "--out", flo,
+                           "model.family=gma")
+    flow = read_flo(flo)
+    pred_ok = flow.shape == (128, 160, 2) and bool(np.isfinite(flow).all())
+    emit({"phase": "gma_cli", "train": recs, "train_ok": train_ok,
+          "train_s": train_s, "predict": pred, "predict_ok": pred_ok,
+          "predict_s": pred_s})
+    if not (train_ok and pred_ok):
+        raise AssertionError("the command line's GMA train or predict gave a "
+                             "wrong result")
+
+
 def trained_pwcnet(dtype, device):
     """The port's PWC-Net with the repo's trained weights."""
     from pwcnet_tpu_torch import PWCNet
@@ -4772,6 +5077,12 @@ def main() -> int:
         encoder_norm_phase(timer, dev)
         allpairs_forward(dev, timer, smi)
         allpairs_cli(out_dir)
+
+        # -- 5d''. GMA: K11 against its plain versions, the 32-iteration
+        # forward at 1080x1920, the command line ------------------------------
+        gma_kernels(timer, dev)
+        gma_forward(dev, timer, smi)
+        gma_cli(out_dir)
 
         # -- 5e. The trained PWC-Net checkpoint; data-parallel training on
         # two gloo ranks sharing the card ------------------------------------

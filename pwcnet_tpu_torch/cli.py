@@ -11,7 +11,8 @@ The presets are the JAX package's (``config.PRESETS``): the file datasets
 read the tree under ``data.root``; ``synthetic-proof`` and
 ``synthetic-hard`` need none; ``raft-chairs`` (or ``model.family=raft``)
 selects RAFT, ``model.family=raft_allpairs`` published RAFT (its all-pairs
-pyramid of 4 levels). It runs on the GPU;
+pyramid of 4 levels), ``model.family=gma`` GMA (published RAFT with global
+motion aggregation). It runs on the GPU;
 ``PWCNET_PLATFORM=cpu`` selects the CPU (the plain
 versions of the kernels). With no GPU and no such setting it raises.
 ``--ckpt`` is a directory of the port's ``CheckpointManager``

@@ -1,4 +1,4 @@
-"""The port's models: PWC-Net, RAFT and published RAFT (all-pairs)."""
+"""The port's models: PWC-Net, RAFT, published RAFT (all-pairs) and GMA."""
 
 from pwcnet_tpu_torch.models.pwcnet import (  # noqa: F401
     ContextNetwork,
@@ -8,3 +8,4 @@ from pwcnet_tpu_torch.models.pwcnet import (  # noqa: F401
 )
 from pwcnet_tpu_torch.models.raft import RAFT  # noqa: F401
 from pwcnet_tpu_torch.models.raft_allpairs import RAFTAllPairs  # noqa: F401
+from pwcnet_tpu_torch.models.gma import GMA  # noqa: F401

@@ -53,6 +53,7 @@ from pwcnet_tpu_torch.ops.corr_lookup import corr_lookup, corr_lookup_ref
 from pwcnet_tpu_torch.ops.corr_pyramid import corr_pyramid, corr_pyramid_ref
 from pwcnet_tpu_torch.ops.encoder_norm import (INSTANCE, NORM_EPS, Norm,
                                                encoder_norm)
+from pwcnet_tpu_torch.ops.kernels import build
 from pwcnet_tpu_torch.ops.kernels.corr_pyramid_kernel import check_levels
 
 DIV = 8
@@ -175,7 +176,18 @@ class RAFTAllPairs(nn.Module):
     is not all plain PyTorch. ``device=None`` means the GPU, and raises when there is none. Conv
     weights are drawn from ``generator`` (seed 0 when None) with the flax
     defaults' law, as the port's other models; norms start at the identity.
+
+    A subclass widens the GRU's input with ``GRU_MOTION`` (the motion
+    features' channels, 128 here) and adds to it through ``_aggregation``
+    (``models/gma.py``).
     """
+
+    GRU_MOTION = 128
+    # The hand kernels a forward on the card launches (K10; K8 and K9 under
+    # "pallas"), compiled side by side when the model is built there; a
+    # subclass adds its own.
+    KERNELS = ("encoder_norm",)
+    CORR_KERNELS = ("corr_pyramid", "corr_lookup")
 
     def __init__(self, num_iters: int = 12, corr_radius: int = 4,
                  corr_levels: int = 4, feat_dim: int = 256,
@@ -197,7 +209,7 @@ class RAFTAllPairs(nn.Module):
         self.fnet = BasicEncoder(feat_dim, "instance")
         self.cnet = BasicEncoder(hidden + context, "batch")
         self.menc = MotionEncoder(corr_levels * (2 * corr_radius + 1) ** 2)
-        self.gru = SepConvGRU(hidden, context + 128)
+        self.gru = SepConvGRU(hidden, context + self.GRU_MOTION)
         self.flow_head_1 = Conv(hidden, 256, (3, 3))
         self.flow_head_2 = Conv(256, 2, (3, 3))
         self.mask_head_1 = Conv(hidden, 256, (3, 3))
@@ -206,6 +218,9 @@ class RAFTAllPairs(nn.Module):
             generator = torch.Generator().manual_seed(0)
         init_params(self, generator)
         self.to(self.device)
+        if self.device.type == "cuda":
+            build.start(self.KERNELS + (self.CORR_KERNELS
+                                        if corr_backend == "pallas" else ()))
 
     @property
     def pad_divisor(self) -> int:
@@ -216,6 +231,12 @@ class RAFTAllPairs(nn.Module):
                   ) -> torch.Tensor:
         logits = 0.25 * self.mask_head_2(F.relu(self.mask_head_1(hidden)))
         return convex_upsample(flow, _nhwc(logits), DIV)
+
+    def _aggregation(self, context: torch.Tensor):
+        """A function of each iteration's motion features whose result
+        joins the GRU's input after them, made once a forward from the
+        context features; None: published RAFT has none."""
+        return None
 
     def forward(self, im1: torch.Tensor, im2: torch.Tensor, *,
                 train: bool = True, gt: Optional[torch.Tensor] = None,
@@ -246,6 +267,7 @@ class RAFTAllPairs(nn.Module):
         pyramid = (corr_pyramid_ref if plain else corr_pyramid)(
             f1, f2, self.corr_levels)
         lookup = corr_lookup_ref if plain else corr_lookup
+        aggregate = self._aggregation(context)
 
         hh, ww = f1.shape[1:3]
         ys, xs = torch.meshgrid(
@@ -268,7 +290,9 @@ class RAFTAllPairs(nn.Module):
             corr = lookup(pyramid, coords1, self.corr_radius)
             flow = coords1 - coords0
             m = self.menc(_nchw(corr), _nchw(flow))
-            hidden = self.gru(hidden, torch.cat([context, m], 1))
+            x = [context, m] if aggregate is None else [context, m,
+                                                        aggregate(m)]
+            hidden = self.gru(hidden, torch.cat(x, 1))
             delta = self.flow_head_2(F.relu(self.flow_head_1(hidden)))
             coords1 = coords1 + _nhwc(delta).float()
             if inscan:

@@ -4,12 +4,16 @@ Each ``pwcnet_tpu_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled, at first use, into ``build/pwcnet_tpu_torch/lib<name>-<hash>.so``
 at the root of the checkout (the hash is of the source and of every
 ``csrc/*.cuh`` header, so an edited source or header is rebuilt).
-``build_all`` starts one ``nvcc`` per source, all at once.
+``build_all`` starts one ``nvcc`` per source, all at once, and waits;
+``start`` starts the given ones at once and returns, so that a model built
+on the card compiles the kernels it launches side by side while it sets
+up, and ``load_library`` waits for each when first asked for it.
 A build failure raises; nothing falls back.
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
@@ -18,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, List
 
 import torch
 
@@ -30,6 +34,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# Compiles that ``start`` began and no ``load_library`` has finished yet.
+_pending: Dict[str, tuple] = {}
 # nvcc's output per kernel built in this process (ptxas: registers, spills).
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -76,6 +82,38 @@ def _finish(out: Path, job) -> None:
     os.replace(tmp, out)
 
 
+def _take(name: str):
+    """(target, job) of ``name``: the compile ``start`` began, else a new
+    one (job None where the target is built)."""
+    return _pending.pop(name, None) or _start(name)
+
+
+def _stop(job) -> None:
+    if job is not None and job[1].poll() is None:
+        job[1].kill()
+        job[1].wait()
+
+
+def start(names: Iterable[str]) -> None:
+    """Start compiling each of ``names`` that is not built, all at once,
+    and return without waiting. A compile that no ``load_library`` takes
+    is stopped when the process exits."""
+    with _lock:
+        for name in names:
+            if name not in _libs and name not in _pending:
+                out, job = _start(name)
+                if job is not None:
+                    _pending[name] = (out, job)
+
+
+@atexit.register
+def _stop_pending() -> None:
+    while _pending:
+        _, (_, job) = _pending.popitem()
+        _stop(job)
+        job[2].unlink(missing_ok=True)
+
+
 def kernel_names() -> List[str]:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
@@ -84,15 +122,13 @@ def build_all() -> float:
     """Compile every kernel source in parallel; returns the seconds taken."""
     t0 = time.perf_counter()
     with _lock:
-        jobs = [_start(n) for n in kernel_names()]
+        jobs = [_take(n) for n in kernel_names()]
         try:
             for out, job in jobs:
                 _finish(out, job)
         finally:  # after a failure, stop the compilers still running
             for _, job in jobs:
-                if job is not None and job[1].poll() is None:
-                    job[1].kill()
-                    job[1].wait()
+                _stop(job)
     return time.perf_counter() - t0
 
 
@@ -107,7 +143,7 @@ def load_library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            out, job = _start(name)
+            out, job = _take(name)
             _finish(out, job)
             lib = _libs[name] = ctypes.CDLL(str(out))
         return lib

@@ -38,7 +38,10 @@ is captured do not recur when it is replayed.
 **Counters.** Named groups of counters, always on: ``counters(group)``
 is the group's dict (the same object at every call), which its owner
 adds to in place. The kernel modules' ``LAUNCHES`` dicts are their
-``launches.<module>`` groups; each ``Captured`` counts
+``launches.<module>`` groups (among them ``launches.encoder_norm``:
+``stats`` and ``apply``, 13 and 26 a published-RAFT forward; and
+``launches.global_attention``: ``map`` and ``aggregate``, GMA's map, one
+a forward, and its aggregation, one an iteration); each ``Captured`` counts
 ``capture.<name>.captures`` (signatures recorded) and ``.replays``
 (signatures found); the device batcher counts ``device_batcher.batches``
 and ``.pinned_uploads``; ``predict_flow`` counts ``predict_flow.calls``

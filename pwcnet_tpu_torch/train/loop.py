@@ -55,6 +55,7 @@ from pwcnet_tpu_torch.config import Config
 from pwcnet_tpu_torch.data.base import get_dataset
 from pwcnet_tpu_torch.data.pipeline import Loader
 from pwcnet_tpu_torch.data.synthetic import make_device_batcher
+from pwcnet_tpu_torch.models.gma import GMA
 from pwcnet_tpu_torch.models.pwcnet import PWCNet, _resolve_device
 from pwcnet_tpu_torch.models.raft import RAFT
 from pwcnet_tpu_torch.models.raft_allpairs import RAFTAllPairs
@@ -80,9 +81,9 @@ def _flag(v) -> bool:
 
 
 def build_model(cfg: Config, device=None
-                ) -> Union[PWCNet, RAFT, RAFTAllPairs]:
-    """The config's PWC-Net, RAFT or published RAFT (``raft_allpairs``),
-    with weights drawn from ``cfg.train.seed``."""
+                ) -> Union[PWCNet, RAFT, RAFTAllPairs, GMA]:
+    """The config's PWC-Net, RAFT, published RAFT (``raft_allpairs``) or
+    GMA (``gma``), with weights drawn from ``cfg.train.seed``."""
     m = cfg.model
     dtype = torch.bfloat16 if m.dtype == "bfloat16" else torch.float32
     generator = torch.Generator().manual_seed(cfg.train.seed)
@@ -92,10 +93,11 @@ def build_model(cfg: Config, device=None
         return RAFT(num_iters=m.raft_iters, corr_radius=m.raft_radius,
                     corr_backend=m.corr_backend, dtype=dtype, device=device,
                     generator=generator, **kw)
-    if m.family == "raft_allpairs":
-        return RAFTAllPairs(num_iters=m.raft_iters, corr_radius=m.raft_radius,
-                            corr_backend=m.corr_backend, dtype=dtype,
-                            device=device, generator=generator)
+    if m.family in ("raft_allpairs", "gma"):
+        cls = RAFTAllPairs if m.family == "raft_allpairs" else GMA
+        return cls(num_iters=m.raft_iters, corr_radius=m.raft_radius,
+                   corr_backend=m.corr_backend, dtype=dtype, device=device,
+                   generator=generator)
     if m.family != "pwcnet":
         raise ValueError(f"unknown model family {m.family!r}")
     return PWCNet(

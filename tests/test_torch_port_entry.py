@@ -2,7 +2,7 @@
 each frame pair goes through a host buffer and a device buffer laid out as
 the padded pair, both reused across calls. Held bit for bit to the host
 pad it replaced (``pad_to_divisible``, a fresh tensor per frame, the
-forward, the crop) for the three families at a ragged and at a divisible
+forward, the crop) for the four families at a ragged and at a divisible
 size; answers kept across calls stay as they were and share no memory with
 the reused buffers; the ``predict_flow`` counters. The ``cuda`` test runs
 the captured forward on a card and skips here.
@@ -26,11 +26,12 @@ from pwcnet_tpu_torch.train.evaluate import (infer_flow, pad_to_divisible,
 
 from torch_port_util import make_model, one_thread, shifted_pair
 
-FAMILIES = ["pwcnet", "raft", "raft_allpairs"]
+FAMILIES = ["pwcnet", "raft", "raft_allpairs", "gma"]
 SIZES = {"ragged": (60, 90), "divisible": (64, 128)}
-# The models on the CPU: PWC-Net with 3 levels, the RAFTs 2 iterations.
+# The models on the CPU: PWC-Net with 3 levels, the others 2 iterations.
 FAMILY_KW = {"pwcnet": dict(num_levels=3, output_level=2),
-             "raft": dict(num_iters=2), "raft_allpairs": dict(num_iters=2)}
+             "raft": dict(num_iters=2), "raft_allpairs": dict(num_iters=2),
+             "gma": dict(num_iters=2)}
 
 
 def _host_pad_flow(model, im1, im2, capture=False) -> np.ndarray:

@@ -407,15 +407,17 @@ def test_build_knows_both_kernel_sources():
     from pwcnet_tpu_torch.ops.kernels import (conv_folded_kernel,
                                               corr_lookup_kernel,
                                               corr_pyramid_kernel,
-                                              encoder_norm_kernel)
+                                              encoder_norm_kernel,
+                                              global_attention_kernel)
     assert build.kernel_names() == ["conv_folded", "corr_lookup",
                                     "corr_pyramid", "cost_volume",
                                     "cost_volume_bwd", "encoder_norm",
-                                    "stem", "warp_corr"]
+                                    "global_attention", "stem", "warp_corr"]
     src = {cost_volume_kernel.SOURCE, cost_volume_kernel.BWD_SOURCE,
            stem_kernel.SOURCE, warp_corr_kernel.SOURCE,
            conv_folded_kernel.SOURCE, corr_pyramid_kernel.SOURCE,
-           corr_lookup_kernel.SOURCE, encoder_norm_kernel.SOURCE}
+           corr_lookup_kernel.SOURCE, encoder_norm_kernel.SOURCE,
+           global_attention_kernel.SOURCE}
     assert src == {f"pwcnet_tpu_torch/csrc/{n}.cu"
                    for n in build.kernel_names()}
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
@@ -435,3 +437,56 @@ def test_build_failure_raises_with_the_compiler_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no compiler here"):
         build.build_all()
     assert not list((tmp_path / "out").glob("*.so"))
+
+
+def _fake_nvcc(tmp_path, monkeypatch, seconds):
+    """Sources a.cu, b.cu and an ``nvcc`` that copies a real shared library
+    to its ``-o`` after ``seconds``."""
+    import _ctypes
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for n in "ab":
+        (src / f"{n}.cu").write_text(f"int {n};\n")
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\nwhile [ $# -gt 0 ]; do [ \"$1\" = -o ] && "
+                    "out=$2; shift; done\n"
+                    f"sleep {seconds}\ncp {_ctypes.__file__} \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC_DIR", src)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setattr(build, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "_pending", {})
+    started = []
+    real = build._start
+    monkeypatch.setattr(build, "_start",
+                        lambda n: started.append(n) or real(n))
+    return started
+
+
+def test_start_compiles_side_by_side_and_load_library_takes_the_job(
+        tmp_path, monkeypatch):
+    """``start`` begins every compile at once and returns while they run;
+    ``load_library`` waits for the one it needs instead of starting it
+    again; a built kernel starts nothing."""
+    started = _fake_nvcc(tmp_path, monkeypatch, 0.5)
+    build.start(["a", "b"])
+    assert started == ["a", "b"]
+    assert all(job[1].poll() is None for _, job in build._pending.values())
+    build.load_library("a")
+    build.load_library("b")
+    assert started == ["a", "b"] and not build._pending
+    build.start(["a", "b"])
+    assert started == ["a", "b"] and not build._pending
+    assert len(list((tmp_path / "out").glob("*.so"))) == 2
+
+
+def test_a_compile_no_one_takes_is_stopped_at_exit(tmp_path, monkeypatch):
+    _fake_nvcc(tmp_path, monkeypatch, 30)
+    build.start(["b"])
+    (_, proc, tmp, _), = [job for _, job in build._pending.values()]
+    build._stop_pending()
+    assert proc.poll() is not None and not build._pending
+    assert not tmp.exists()
+    assert not list((tmp_path / "out").glob("*.so"))
+
