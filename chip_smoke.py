@@ -3015,10 +3015,12 @@ def allpairs_forward(dev, timer, smi) -> dict:
 
 
 # GMA (gma): K11 at the cell's 1/8 grid of a 1080x1920 pair (135x240, P =
-# 32400), at 136x240 (1088 rows) and at a ragged grid (17x30: P = 510, rows
-# not a whole tile); q and k as views of one (P, 256) buffer, as the model
-# splits them, scaled so that the scores spread by about 2.
-GMA_GRIDS = [(135, 240), (136, 240), (17, 30)]
+# 32400), at 136x240 (1088 rows), at a ragged grid (17x30: P = 510, rows
+# not a whole tile) and at published GMA's Sintel grid (55x128: too few row
+# blocks to fill the card, so the aggregation splits its keys); q and k as
+# views of one (P, 256) buffer, as the model splits them, scaled so that the
+# scores spread by about 2.
+GMA_GRIDS = [(135, 240), (136, 240), (17, 30), (55, 128)]
 GMA_SEED = 24
 GMA_HW = (1080, 1920)
 GMA_ITERS = 32
@@ -3088,7 +3090,9 @@ def gma_kernels(timer, dev) -> dict:
     bound (``costs_gma.attention_cost``), and the two designs' yardsticks,
     library calls the port never makes: cuBLAS streaming a stored bf16 map
     (``torch.matmul``) and flash attention recomputing it each time
-    (``scaled_dot_product_attention``), each beside its bound."""
+    (``scaled_dot_product_attention``), each beside its bound. At 55x128 in
+    bf16: the aggregation's time (its keys split across a cluster,
+    ``aggregate_cluster``), its byte bound and cuBLAS's."""
     import torch.nn.functional as F
 
     from flowbench import costs, costs_gma
@@ -3144,6 +3148,17 @@ def gma_kernels(timer, dev) -> dict:
                            forward_plain_ms=row["map_plain_ms"] + GMA_ITERS
                            * row["aggregate_plain_ms"])
                 timed = row
+            if dtype == torch.bfloat16 and (h, w) == (55, 128):
+                with torch.inference_mode():
+                    row.update(
+                        aggregate_cluster=gk._lib()
+                        .pwc_attention_aggregate_cluster(1, p, 1),
+                        aggregate_ms=timer(lambda: gk.aggregate_cuda(
+                            attn, v, m, gamma), reps=10, inner=8),
+                        stream_library_ms=timer(lambda: torch.matmul(attn, v),
+                                                reps=10, inner=8),
+                        stream_bound_ms=costs.bound_ms(p * p * 2,
+                                                       2.0 * p * p * 128))
             emit(row)
             del attn
             if not all(got <= lim for got, lim in errs.values()):

@@ -5,7 +5,9 @@ A port-only kernel: the JAX package has no attention. The plain versions
 are ``pwcnet_tpu_torch.ops.global_attention.attention_map_ref`` and
 ``aggregate_ref``; each Function's backward is autograd of its plain
 version. A forward is one ``map`` launch a pair and one ``aggregate``
-launch an iteration, on the current stream.
+launch an iteration, on the current stream; ``aggregate_split`` counts the
+bf16 aggregations whose row blocks were too few to fill the card, so that
+a cluster of blocks split each row block's keys.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ SOURCE = "pwcnet_tpu_torch/csrc/global_attention.cu"
 DIM = 128   # the kernels' head width and value channels (GMA's)
 
 # Kernel launches in this process; the wrapper adds one per launch.
-LAUNCHES = trace.counters("launches.global_attention", ("map", "aggregate"))
+LAUNCHES = trace.counters("launches.global_attention",
+                          ("map", "aggregate", "aggregate_split"))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +40,8 @@ def _lib():
     lib.pwc_attention_aggregate.argtypes = ([_P] * 5 + [_I] * 3 + [_L] * 8
                                             + [_I, _P])
     lib.pwc_attention_aggregate.restype = _I
+    lib.pwc_attention_aggregate_cluster.argtypes = [_I] * 3
+    lib.pwc_attention_aggregate_cluster.restype = _I
     return lib
 
 
@@ -110,17 +115,21 @@ def aggregate_cuda(attn: torch.Tensor, v: torch.Tensor, m: torch.Tensor,
     m = _rows("m", m, n, p, DIM, dtype)
     gamma = gamma.detach().float().reshape(1).contiguous()
     out = torch.empty((n, p, DIM), dtype=dtype, device=m.device)
+    bf16 = int(dtype == torch.bfloat16)
+    lib = _lib()
     with torch.cuda.device(m.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().pwc_attention_aggregate(
+        err = lib.pwc_attention_aggregate(
             attn.data_ptr(), v.data_ptr(), m.data_ptr(), gamma.data_ptr(),
             out.data_ptr(), n, p, DIM, attn.stride(1), v.stride(1),
             m.stride(1), DIM, attn.stride(0), v.stride(0), m.stride(0),
-            p * DIM, int(dtype == torch.bfloat16), stream)
+            p * DIM, bf16, stream)
+        split = lib.pwc_attention_aggregate_cluster(n, p, bf16) > 1
     if err:
         raise RuntimeError(f"global attention aggregate launch failed: CUDA "
                            f"error {err}")
     LAUNCHES["aggregate"] += 1
+    LAUNCHES["aggregate_split"] += split
     return out
 
 

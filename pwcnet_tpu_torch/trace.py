@@ -41,7 +41,9 @@ adds to in place. The kernel modules' ``LAUNCHES`` dicts are their
 ``launches.<module>`` groups (among them ``launches.encoder_norm``:
 ``stats`` and ``apply``, 13 and 26 a published-RAFT forward; and
 ``launches.global_attention``: ``map`` and ``aggregate``, GMA's map, one
-a forward, and its aggregation, one an iteration); each ``Captured`` counts
+a forward, and its aggregation, one an iteration, and ``aggregate_split``,
+the aggregations that split their keys across a cluster); each
+``Captured`` counts
 ``capture.<name>.captures`` (signatures recorded) and ``.replays``
 (signatures found); the device batcher counts ``device_batcher.batches``
 and ``.pinned_uploads``; ``predict_flow`` counts ``predict_flow.calls``

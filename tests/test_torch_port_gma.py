@@ -407,9 +407,12 @@ def test_cli_eval_takes_the_family(capsys, monkeypatch):
 # (relative 1e-5 of a value: of a map row's max for the map); bf16, the
 # rules of ``ops.global_attention`` (each value within one bf16 step, a
 # map's rows summing to 1 within 2**-9, K11's map through the plain
-# aggregation within two steps of the largest value).
+# aggregation within two steps of the largest value). The grids: the cell's
+# (its 127 row blocks fill the card), 136x240, published GMA's Sintel grid
+# 55x128 and the ragged 17x30 (row blocks too few: a cluster splits the
+# keys), and 1x5 (P under one tile).
 F32_TOL = 1e-5
-K11_GRIDS = [(135, 240), (136, 240), (17, 30)]
+K11_GRIDS = [(135, 240), (136, 240), (17, 30), (55, 128), (1, 5)]
 
 
 def _qkvm(hw, dtype, dev, seed):
@@ -519,12 +522,11 @@ def _card_model(dev, dtype=torch.bfloat16, iters=4, backend="pallas"):
     return model.eval()
 
 
-def _k11_launches(backend):
+def _k11_launches(backend, hw=(136, 240), iters=4):
     from pwcnet_tpu_torch import trace
     dev = torch.device("cuda")
-    model = _card_model(dev, backend=backend)
-    im1, im2 = (t.to(dev) for t in shifted_pair(14, (136, 240),
-                                                 torch_batch=True))
+    model = _card_model(dev, iters=iters, backend=backend)
+    im1, im2 = (t.to(dev) for t in shifted_pair(14, hw, torch_batch=True))
     counts = trace.counters("launches.global_attention")
     before = dict(counts)
     with torch.no_grad():
@@ -532,10 +534,14 @@ def _k11_launches(backend):
     return {k: counts[k] - before[k] for k in counts}
 
 
+# A 136x240 pair's 17x30 grid has 2 row blocks: each aggregation splits.
+K11_SMALL = {"map": 1, "aggregate": 4, "aggregate_split": 4}
+
+
 @pytest.mark.cuda
 def test_forward_launches_k11_once_a_pair_and_once_an_iteration():
     need_cuda()
-    assert _k11_launches("pallas") == {"map": 1, "aggregate": 4}
+    assert _k11_launches("pallas") == K11_SMALL
 
 
 @pytest.mark.cuda
@@ -543,7 +549,18 @@ def test_lax_forward_on_the_card_launches_k11_too():
     """``corr_backend`` chooses K8/K9 alone: the attention of a ``"lax"``
     model on the card is K11's, as the encoders' norms are K10's."""
     need_cuda()
-    assert _k11_launches("lax") == {"map": 1, "aggregate": 4}
+    assert _k11_launches("lax") == K11_SMALL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw, split", [((1080, 1920), 0), ((440, 1024), 32)])
+def test_aggregations_split_their_keys_where_row_blocks_are_few(hw, split):
+    """A 32-iteration forward: the cell's 135x240 grid (127 row blocks of
+    256, enough for the card) splits no aggregation; published GMA's
+    Sintel grid, 55x128 (28 row blocks), splits all 32."""
+    need_cuda()
+    assert _k11_launches("pallas", hw, 32) == {
+        "map": 1, "aggregate": 32, "aggregate_split": split}
 
 
 @pytest.fixture
