@@ -43,7 +43,12 @@ ragged one, timed against its bound beside cuBLAS streaming a stored map
 and flash attention recomputing it), its 32-iteration forward at
 1080x1920 (``gma_forward``: K8, K9, K10 as published RAFT's, 1 K11 map
 and 32 aggregations, the captured forward's kernels by kind, f32 card vs
-CPU) and its command line (``gma_cli``). Then the repo's
+CPU) and its command line (``gma_cli``); GMFlow's window attention
+(``gmflow_kernels``: K12 against its plain version, bf16 and f32, at the
+cell's calls and ragged ones, timed against its bound beside flash SDPA
+over the same windows) and its forward at 1088x1920 (``gmflow_forward``:
+12 unshifted, 12 shifted and 2 global K12 launches, the captured forward's
+kernels by kind, f32 card vs CPU per stage). Then the repo's
 trained PWC-Net checkpoint (``pwc_trained``: bf16 launches, val EPE on
 synthetic-proof's 256 val pairs beside the TPU run's, f32 card vs CPU per
 level); the PWC-Net
@@ -3192,7 +3197,8 @@ def gma_model(dtype, device, iters=GMA_ITERS):
     return model.eval()
 
 
-KERNEL_KINDS = (("K11", "global_attention"), ("K8", "corr_pyramid"),
+KERNEL_KINDS = (("K11", "global_attention"), ("K12", "window_attention"),
+                ("K1", "corr_band"), ("K8", "corr_pyramid"),
                 ("K9", "corr_lookup"), ("K10", "encoder_norm"),
                 ("cat", "CatArray"), ("elementwise", "elementwise"),
                 ("reduce", "reduce_kernel"),
@@ -3325,6 +3331,178 @@ def gma_cli(out_dir: str) -> None:
     if not (train_ok and pred_ok):
         raise AssertionError("the command line's GMA train or predict gave a "
                              "wrong result")
+
+
+GMFLOW_SEED = 26
+GMFLOW_HW = (1088, 1920)       # the cell's 1080x1920 padded to 32
+GMFLOW_LAUNCHES = {"window": 12, "shifted": 12, "global": 2}
+# K12's calls (images, h, w, splits, shifted, value width): the cell's
+# (one of each kind of launch) and ragged ones.
+GMFLOW_CALLS = [(2, 136, 240, 2, False, 128), (2, 136, 240, 2, True, 128),
+                (2, 272, 480, 8, False, 128), (2, 272, 480, 8, True, 128),
+                (1, 136, 240, 1, False, 2), (2, 34, 58, 2, True, 128),
+                (1, 34, 58, 1, False, 2), (2, 66, 90, 3, True, 128)]
+
+
+def k12_inputs(call, dtype, dev, gen):
+    b, h, w, _, _, vw = call
+    q, k = ((2 * torch.randn((b, h, w, 128), generator=gen, device=dev))
+            .to(dtype) for _ in range(2))
+    vdt = dtype if vw == 128 else torch.float32
+    v = (5 * torch.randn((b, h, w, vw), generator=gen, device=dev)).to(vdt)
+    return q, k, v
+
+
+def gmflow_kernels(timer, dev) -> dict:
+    """gmflow_kernels: K12 (GMFlow's window attention) against its plain
+    version on the card, bf16 and f32, at the cell's calls (the 1/8 and 1/4
+    windows of both frames, unshifted and shifted, and the global matching)
+    and at ragged ones (``ops.window_attention``'s rule: max|got - want|
+    within BF16_TOL or F32_TOL of max|v|); in bf16 at the cell's calls its
+    time, its bound (``costs_gmflow.attention_cost``), the plain version's,
+    and flash SDPA's over the same windows split beforehand (``library_ms``,
+    a library call the port never makes); a forward's K12 time (6 of each
+    windowed call and 2 global ones); the Function's gradients."""
+    import torch.nn.functional as F
+
+    from flowbench import costs, costs_gmflow
+    from pwcnet_tpu_torch.ops import window_attention as wa
+    from pwcnet_tpu_torch.ops.kernels import window_attention_kernel as wk
+    gen = torch.Generator(device=dev).manual_seed(GMFLOW_SEED)
+    timed = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for call in GMFLOW_CALLS:
+            b, h, w, splits, shifted, vw = call
+            q, k, v = k12_inputs(call, dtype, dev, gen)
+            off = 1 if b == 2 else 0
+            with torch.inference_mode():
+                got = wk.window_attention_cuda(q, k, v, splits, shifted, off)
+                want = wa.window_attention_ref(q, k, v, splits, shifted, off)
+            vmax = float(v.float().abs().max())
+            gap = float((got.float() - want.float()).abs().max()) / vmax
+            tol = (wa.BF16_TOL if got.dtype == torch.bfloat16
+                   else wa.F32_TOL)
+            row = {"phase": "gmflow_kernels", "call": list(call),
+                   "dtype": str(dtype), "gap_over_max_v": gap, "tol": tol,
+                   "finite": bool(torch.isfinite(got).all())}
+            del got, want
+            if dtype == torch.bfloat16 and call in GMFLOW_CALLS[:5]:
+                bound = costs.bound_ms(*costs_gmflow.attention_cost(call))
+                with torch.inference_mode():
+                    row["ms"] = timer(lambda: wk.window_attention_cuda(
+                        q, k, v, splits, shifted, off), reps=10, inner=3)
+                    row["plain_ms"] = timer(lambda: wa.window_attention_ref(
+                        q, k, v, splits, shifted, off), reps=2, inner=1)
+                    if vw == 128:
+                        wh, ww = h // splits, w // splits
+                        qs, ks, vs = (t.reshape(b, splits, wh, splits, ww,
+                                                128).permute(0, 1, 3, 2, 4, 5)
+                                      .reshape(b * splits * splits, 1,
+                                               wh * ww, 128)
+                                      for t in (q, k, v))
+                        row["library_ms"] = timer(
+                            lambda: F.scaled_dot_product_attention(qs, ks,
+                                                                   vs),
+                            reps=10, inner=3)
+                row.update(bound_ms=bound, roofline=bound / row["ms"])
+                timed[tuple(call)] = row
+            emit(row)
+            if not (row["finite"] and gap <= tol):
+                raise AssertionError(f"K12 disagrees with its plain version "
+                                     f"at {call} {dtype}: {gap} > {tol}")
+    fwd = (6 * sum(timed[tuple(c)]["ms"] for c in GMFLOW_CALLS[:4])
+           + 2 * timed[tuple(GMFLOW_CALLS[4])]["ms"])
+    bound = (6 * sum(timed[tuple(c)]["bound_ms"] for c in GMFLOW_CALLS[:4])
+             + 2 * timed[tuple(GMFLOW_CALLS[4])]["bound_ms"])
+    emit({"phase": "gmflow_kernels_forward", "k12_ms": fwd,
+          "bound_ms": bound, "roofline": bound / fwd})
+    # The Function's gradients (f32, a small shifted call).
+    q, k, v = (t.detach().clone().requires_grad_() for t in k12_inputs(
+        (2, 8, 12, 2, True, 128), torch.float32, dev, gen))
+    proj = torch.randn((2, 8, 12, 128), generator=gen, device=dev)
+    got = torch.autograd.grad((wa.window_attention(q, k, v, 2, True, 1)
+                               * proj).sum(), (q, k, v))
+    want = torch.autograd.grad((wa.window_attention_ref(q, k, v, 2, True, 1)
+                                * proj).sum(), (q, k, v))
+    grad_errs = [rel_err(a, b)[1] for a, b in zip(got, want)]
+    emit({"phase": "gmflow_grads", "rel_err": grad_errs, "tol": FWD_TOL})
+    if not max(grad_errs) <= FWD_TOL:
+        raise AssertionError(f"K12 Function's gradients: {grad_errs}")
+    return {"k12_forward_ms": fwd, "bound_ms": bound}
+
+
+def gmflow_model(dtype, device):
+    """GMFlow with the benchmark's seeded weights (its cell's law), drawn
+    on the CPU so that every device gets the same ones."""
+    from flowbench import harness
+    from flowbench.drivers import stream_gmflow
+    from pwcnet_tpu_torch.models import GMFlow
+    cfg = harness.resolve("gmflow-stream-hd1080").config
+    model = GMFlow(dtype=dtype, device=device)
+    model.load_state_dict(stream_gmflow.seeded_weights(cfg, GMFLOW_SEED,
+                                                       "cpu"))
+    return model.eval()
+
+
+def gmflow_forward(dev, timer, smi) -> dict:
+    """gmflow_forward: GMFlow (bf16) on a 1088x1920 pair: one eager
+    forward's K12 launches (12 unshifted, 12 shifted, 2 global) and K1's,
+    the flow's shape and finiteness, the captured forward's device time and
+    its kernels by kind, predict_flow's wall time at 1080x1920, the peak
+    memory; then the f32 card forward (K1, K10, K12) against the CPU's
+    plain ops at 128x192, per stage."""
+    from pwcnet_tpu_torch import predict_flow
+    from pwcnet_tpu_torch.ops.kernels import cost_volume_kernel as ck
+    from pwcnet_tpu_torch.ops.kernels import window_attention_kernel as wk
+    from pwcnet_tpu_torch.train.evaluate import infer_flow
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = gmflow_model(torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(GMFLOW_SEED)
+    im1 = torch.rand((1, *GMFLOW_HW, 3), generator=gen, device=dev)
+    im2 = torch.roll(im1, (2, 3), (1, 2))
+    with torch.inference_mode():
+        model(im1, im2)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches(wk, ck)
+        flows = model(im1, im2)
+        torch.cuda.synchronize()
+        launches = dict(wk.LAUNCHES)
+        corr = {k: v for k, v in ck.LAUNCHES.items() if v}
+        finite = bool(torch.isfinite(flows[-1]).all())
+        eager_dev = timer(lambda: model(im1, im2), reps=3, inner=1)
+        infer_flow(model, im1, im2)  # capture
+        captured_dev = timer(lambda: infer_flow(model, im1, im2), reps=5,
+                             inner=2)
+        kinds = kernels_by_kind(lambda: infer_flow(model, im1, im2))
+    a = im1[0, :1080].cpu().numpy()
+    b = im2[0, :1080].cpu().numpy()
+    predict_wall = wall_ms(lambda: predict_flow(model, a, b), reps=10)
+    emit({"phase": "gmflow_forward", "dtype": "bfloat16",
+          "hw": list(GMFLOW_HW), "launches": launches, "corr_launches": corr,
+          "finite": finite, "flow_shape": list(flows[-1].shape),
+          "eager_device_ms": eager_dev, "captured_device_ms": captured_dev,
+          "captured_kernels_by_kind": kinds,
+          "predict_flow_ms_wall": predict_wall,
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "nvidia_smi": smi})
+    if not finite or tuple(flows[-1].shape) != (1, *GMFLOW_HW, 2):
+        raise AssertionError(f"bad GMFlow flow: finite={finite} "
+                             f"{tuple(flows[-1].shape)}")
+    if launches != GMFLOW_LAUNCHES:
+        raise AssertionError(f"expected {GMFLOW_LAUNCHES} K12 launches a "
+                             f"forward, got {launches}")
+    del model, flows
+    c1, c2 = (torch.rand((1, 128, 192, 3), generator=gen, device=dev)
+              for _ in range(2))
+    with torch.inference_mode():
+        f_card = gmflow_model(torch.float32, dev)(c1, c2)
+        f_cpu = gmflow_model(torch.float32, "cpu")(c1.cpu(), c2.cpu())
+    errs = [rel_err(x.cpu(), y)[1] for x, y in zip(f_card, f_cpu)]
+    emit({"phase": "gmflow_forward_f32_card_vs_cpu", "hw": [128, 192],
+          "rel_err": errs, "tol": FWD_TOL})
+    if not max(errs) <= FWD_TOL:
+        raise AssertionError(f"GMFlow card and CPU forwards disagree: {errs}")
+    return {"launches": launches, "captured_device_ms": captured_dev}
 
 
 def trained_pwcnet(dtype, device):
@@ -5098,6 +5276,11 @@ def main() -> int:
         gma_kernels(timer, dev)
         gma_forward(dev, timer, smi)
         gma_cli(out_dir)
+
+        # -- 5d'''. GMFlow: K12 against its plain version, the forward at
+        # 1088x1920 ------------------------------------------------------------
+        gmflow_kernels(timer, dev)
+        gmflow_forward(dev, timer, smi)
 
         # -- 5e. The trained PWC-Net checkpoint; data-parallel training on
         # two gloo ranks sharing the card ------------------------------------

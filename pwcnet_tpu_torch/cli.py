@@ -12,7 +12,9 @@ read the tree under ``data.root``; ``synthetic-proof`` and
 ``synthetic-hard`` need none; ``raft-chairs`` (or ``model.family=raft``)
 selects RAFT, ``model.family=raft_allpairs`` published RAFT (its all-pairs
 pyramid of 4 levels), ``model.family=gma`` GMA (published RAFT with global
-motion aggregation). It runs on the GPU;
+motion aggregation), ``model.family=gmflow`` GMFlow with refinement (its
+shifted-window transformer, global and local matching; inference only:
+``predict``, ``eval``, ``match``). It runs on the GPU;
 ``PWCNET_PLATFORM=cpu`` selects the CPU (the plain
 versions of the kernels). With no GPU and no such setting it raises.
 ``--ckpt`` is a directory of the port's ``CheckpointManager``

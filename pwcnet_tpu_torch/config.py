@@ -40,7 +40,7 @@ class AugmentConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    family: str = "pwcnet"            # pwcnet | raft | raft_allpairs | gma
+    family: str = "pwcnet"   # pwcnet | raft | raft_allpairs | gma | gmflow
     raft_iters: int = 12
     raft_radius: int = 4
     num_levels: int = 6

@@ -32,4 +32,5 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     for m in model.modules():
         if isinstance(m, Conv):
             lecun_normal_(m.weight, generator)
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()

@@ -61,12 +61,20 @@ DIV = 8
 
 class PaddedConv(Conv):
     """A conv with PyTorch's symmetric padding ``k // 2`` (the published
-    stride-2 convs; for odd kernels at stride 1 it equals XLA SAME)."""
+    stride-2 convs; for odd kernels at stride 1 it equals XLA SAME);
+    ``bias=False`` leaves the bias out (GMFlow's 3x3 and 7x7 convs)."""
+
+    def __init__(self, cin: int, cout: int, kernel=(3, 3), stride: int = 1,
+                 bias: bool = True):
+        super().__init__(cin, cout, kernel, stride)
+        if not bias:
+            self.bias = None
 
     def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         kh, kw = self.weight.shape[-2:]
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
-                        stride=self.stride, padding=(kh // 2, kw // 2))
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(x, self.weight.to(x.dtype), b, stride=self.stride,
+                        padding=(kh // 2, kw // 2))
 
 
 class InstanceNorm(nn.Module):
@@ -101,17 +109,20 @@ def _norm(kind: str, features: int) -> nn.Module:
 
 class ResidualBlock(nn.Module):
     """The published block: ``relu(x' + relu(norm2(conv2(relu(norm1(
-    conv1(x)))))))``, ``x' = norm3(down(x))`` where the stride is 2. Each
-    norm with what follows it is one ``encoder_norm`` (K10 on the GPU)."""
+    conv1(x)))))))``, ``x' = norm3(down(x))`` (a 1x1 conv with bias) where
+    the stride or the width changes, else ``x``. Each norm with what
+    follows it is one ``encoder_norm`` (K10 on the GPU). ``bias=False``
+    drops the 3x3 convs' biases (GMFlow's ``CNNEncoder``); RAFT's have
+    them."""
 
-    def __init__(self, cin: int, planes: int, norm: str, stride: int = 1):
+    def __init__(self, cin: int, planes: int, norm: str, stride: int = 1,
+                 bias: bool = True):
         super().__init__()
-        conv = PaddedConv if stride != 1 else Conv
-        self.conv1 = conv(cin, planes, (3, 3), stride)
-        self.conv2 = Conv(planes, planes, (3, 3))
+        self.conv1 = PaddedConv(cin, planes, (3, 3), stride, bias=bias)
+        self.conv2 = PaddedConv(planes, planes, (3, 3), bias=bias)
         self.norm1, self.norm2 = _norm(norm, planes), _norm(norm, planes)
         self.down = self.norm3 = None
-        if stride != 1:
+        if stride != 1 or cin != planes:
             self.down = PaddedConv(cin, planes, (1, 1), stride)
             self.norm3 = _norm(norm, planes)
 
@@ -124,17 +135,21 @@ class ResidualBlock(nn.Module):
 
 
 class BasicEncoder(nn.Module):
-    """RAFT's BasicEncoder to 1/8 resolution and ``dim`` channels (NCHW)."""
+    """RAFT's BasicEncoder to 1/8 resolution and ``dim`` channels (NCHW).
+    ``strides`` are the three stages' (64, 96 and 128 wide) and ``bias``
+    the 7x7 and 3x3 convs': GMFlow's ``CNNEncoder`` is ``strides=(1, 2,
+    1)`` (1/4 resolution), ``bias=False``."""
 
-    def __init__(self, dim: int, norm: str):
+    def __init__(self, dim: int, norm: str, strides=(1, 2, 2),
+                 bias: bool = True):
         super().__init__()
-        self.conv1 = PaddedConv(3, 64, (7, 7), 2)
+        self.conv1 = PaddedConv(3, 64, (7, 7), 2, bias=bias)
         self.norm1 = _norm(norm, 64)
         blocks = []
         cin = 64
-        for planes, stride in ((64, 1), (96, 2), (128, 2)):
-            blocks += [ResidualBlock(cin, planes, norm, stride),
-                       ResidualBlock(planes, planes, norm, 1)]
+        for planes, stride in zip((64, 96, 128), strides):
+            blocks += [ResidualBlock(cin, planes, norm, stride, bias),
+                       ResidualBlock(planes, planes, norm, 1, bias)]
             cin = planes
         self.blocks = nn.ModuleList(blocks)
         self.conv2 = Conv(128, dim, (1, 1))

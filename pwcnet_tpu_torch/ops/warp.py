@@ -13,6 +13,8 @@ it, K6's bf16 backward and the plain one (which share this warp) differed
 in df2 by up to 7.3e-3 of its max, with the f32 gather by at most 1.2e-3
 (``chip_smoke.py``, ``k6_grad_check``; NVIDIA H100 80GB HBM3, 700 W).
 
+``flow_warp`` is GMFlow's warp: the same blend without the coverage mask.
+
 ``warp_table`` / ``warp_bilinear_from_table`` (JAX ``ops/warp.py:138``,
 ``:175``) split the warp for a caller that warps the same features by many
 flows (RAFT, once per iteration): the 4-corner table over a 1-pixel zero
@@ -45,6 +47,21 @@ def warp_bilinear(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
       (N, H, W, C) in ``feat.dtype``: ``out[n, y, x] ~ feat[n, y + v, x + u]``
       bilinearly interpolated in f32, zero outside, with the coverage mask.
     """
+    out, cov = _blend(feat, flow)
+    return (out * (cov >= 0.9999).float()).to(feat.dtype)
+
+
+def flow_warp(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """GMFlow's ``flow_warp`` (the released ``gmflow/geometry.py``):
+    ``warp_bilinear`` without the coverage mask, i.e. ``F.grid_sample`` of
+    ``feat`` at the pixel grid plus ``flow`` with ``align_corners=True`` and
+    zeros outside. NHWC in and out, blended in f32, in ``feat.dtype``."""
+    return _blend(feat, flow)[0].to(feat.dtype)
+
+
+def _blend(feat: torch.Tensor, flow: torch.Tensor):
+    """The f32 bilinear blend of the in-image corners and its coverage (the
+    in-image corners' summed weights)."""
     n, h, w, c = feat.shape
     dev = feat.device
     xs = torch.arange(w, device=dev, dtype=torch.float32).view(1, 1, w) \
@@ -76,7 +93,7 @@ def warp_bilinear(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     w11 = wy * wx
     out = w00 * g00 + w01 * g01 + w10 * g10 + w11 * g11
     cov = w00 * m00 + w01 * m01 + w10 * m10 + w11 * m11
-    return (out * (cov >= 0.9999).float()).to(feat.dtype)
+    return out, cov
 
 
 def warp_table(feat: torch.Tensor) -> torch.Tensor:

@@ -42,7 +42,10 @@ adds to in place. The kernel modules' ``LAUNCHES`` dicts are their
 ``stats`` and ``apply``, 13 and 26 a published-RAFT forward; and
 ``launches.global_attention``: ``map`` and ``aggregate``, GMA's map, one
 a forward, and its aggregation, one an iteration, and ``aggregate_split``,
-the aggregations that split their keys across a cluster); each
+the aggregations that split their keys across a cluster; and
+``launches.window_attention``: ``window``, ``shifted`` and ``global``,
+GMFlow's attention over unshifted and shifted windows and over the whole
+grid, 12, 12 and 2 a forward); each
 ``Captured`` counts
 ``capture.<name>.captures`` (signatures recorded) and ``.replays``
 (signatures found); the device batcher counts ``device_batcher.batches``

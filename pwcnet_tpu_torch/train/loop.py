@@ -56,6 +56,7 @@ from pwcnet_tpu_torch.data.base import get_dataset
 from pwcnet_tpu_torch.data.pipeline import Loader
 from pwcnet_tpu_torch.data.synthetic import make_device_batcher
 from pwcnet_tpu_torch.models.gma import GMA
+from pwcnet_tpu_torch.models.gmflow import GMFlow
 from pwcnet_tpu_torch.models.pwcnet import PWCNet, _resolve_device
 from pwcnet_tpu_torch.models.raft import RAFT
 from pwcnet_tpu_torch.models.raft_allpairs import RAFTAllPairs
@@ -81,9 +82,10 @@ def _flag(v) -> bool:
 
 
 def build_model(cfg: Config, device=None
-                ) -> Union[PWCNet, RAFT, RAFTAllPairs, GMA]:
-    """The config's PWC-Net, RAFT, published RAFT (``raft_allpairs``) or
-    GMA (``gma``), with weights drawn from ``cfg.train.seed``."""
+                ) -> Union[PWCNet, RAFT, RAFTAllPairs, GMA, GMFlow]:
+    """The config's PWC-Net, RAFT, published RAFT (``raft_allpairs``), GMA
+    (``gma``) or GMFlow with refinement (``gmflow``; inference only), with
+    weights drawn from ``cfg.train.seed``."""
     m = cfg.model
     dtype = torch.bfloat16 if m.dtype == "bfloat16" else torch.float32
     generator = torch.Generator().manual_seed(cfg.train.seed)
@@ -98,6 +100,9 @@ def build_model(cfg: Config, device=None
         return cls(num_iters=m.raft_iters, corr_radius=m.raft_radius,
                    corr_backend=m.corr_backend, dtype=dtype, device=device,
                    generator=generator)
+    if m.family == "gmflow":
+        return GMFlow(corr_backend=m.corr_backend, dtype=dtype, device=device,
+                      generator=generator)
     if m.family != "pwcnet":
         raise ValueError(f"unknown model family {m.family!r}")
     return PWCNet(

@@ -408,16 +408,18 @@ def test_build_knows_both_kernel_sources():
                                               corr_lookup_kernel,
                                               corr_pyramid_kernel,
                                               encoder_norm_kernel,
-                                              global_attention_kernel)
+                                              global_attention_kernel,
+                                              window_attention_kernel)
     assert build.kernel_names() == ["conv_folded", "corr_lookup",
                                     "corr_pyramid", "cost_volume",
                                     "cost_volume_bwd", "encoder_norm",
-                                    "global_attention", "stem", "warp_corr"]
+                                    "global_attention", "stem", "warp_corr",
+                                    "window_attention"]
     src = {cost_volume_kernel.SOURCE, cost_volume_kernel.BWD_SOURCE,
            stem_kernel.SOURCE, warp_corr_kernel.SOURCE,
            conv_folded_kernel.SOURCE, corr_pyramid_kernel.SOURCE,
            corr_lookup_kernel.SOURCE, encoder_norm_kernel.SOURCE,
-           global_attention_kernel.SOURCE}
+           global_attention_kernel.SOURCE, window_attention_kernel.SOURCE}
     assert src == {f"pwcnet_tpu_torch/csrc/{n}.cu"
                    for n in build.kernel_names()}
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)

@@ -137,15 +137,17 @@ def shifted_pair(seed, hw, gain=1.0, torch_batch=False):
 
 def make_model(family, seed=0, state_dict=None, **kw):
     """A port model of ``family`` (``"pwcnet"``, ``"raft"``,
-    ``"raft_allpairs"`` or ``"gma"``) on the CPU unless ``kw`` names a
-    device, its init drawn from a generator seeded with ``seed``, with
-    ``state_dict`` loaded when given; ``kw`` goes to the constructor."""
+    ``"raft_allpairs"``, ``"gma"`` or ``"gmflow"``) on the CPU unless
+    ``kw`` names a device, its init drawn from a generator seeded with
+    ``seed``, with ``state_dict`` loaded when given; ``kw`` goes to the
+    constructor."""
     from pwcnet_tpu_torch import PWCNet
     from pwcnet_tpu_torch.models.gma import GMA
+    from pwcnet_tpu_torch.models.gmflow import GMFlow
     from pwcnet_tpu_torch.models.raft import RAFT
     from pwcnet_tpu_torch.models.raft_allpairs import RAFTAllPairs
     cls = {"pwcnet": PWCNet, "raft": RAFT, "raft_allpairs": RAFTAllPairs,
-           "gma": GMA}[family]
+           "gma": GMA, "gmflow": GMFlow}[family]
     m = cls(**{"device": "cpu", **kw},
             generator=torch.Generator().manual_seed(seed))
     if state_dict is not None:
